@@ -1,0 +1,117 @@
+"""One box-eliminating polish candidate solve.
+
+Replaces the TPU kernel ``neupan_tpu/ops/pallas/polish.py:box_candidate``
+(``_box_candidate_kernel`` + ``_spd_inv_inline``) with
+``neupan_torch/csrc/polish.cu``.
+
+What it computes, per scenario: the masked Hessian Hm (identity row and
+column at the pinned coordinates) and its inverse; the dual Schur
+complement S = DAn Hm^{-1} DAn' + diag(1 - d) + 1e-6 over the acceleration
+rows and its inverse (both inverses Jacobi-scaled with a 1e-7 ridge); one
+KKT solve; then ``refine`` reduced-space refinement passes against the
+true Hessian (grad = C0 - Hr_true w).
+
+Bound on the H100: operations and bytes are close. At k=30, na=18,
+refine=7 one candidate is ~0.2 MFLOP (the two inverses ~66 k, the Schur
+build ~52 k, each refinement pass ~12 k) against ~10 KB of input; at B=512
+that is ~0.1 GFLOP against ~5 MB. What the kernel waits on is the chain of
+~150 dependent small steps, each ended by a barrier.
+
+Design: one block per scenario (128 threads). Hr, Hr_true, DAn and every
+intermediate (Hm^{-1}, Hm^{-1} DAn', S^{-1}, w, yn, the residuals) live in
+shared memory (~22 KB); both inverses run through the sweep device
+function of ``csrc/sweep.cuh``; the Jacobi scale is ``1/sqrtf`` (correctly
+rounded), not the approximate ``rsqrtf``. Only w and yn are written back.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from neupan_torch.ops.kernels import _build
+from neupan_torch.ops.kernels.sweep import (MAX_N, spd_inverse_scaled,
+                                            sweep_spd_inverse_plain)
+
+
+def smem_bytes(k: int, na: int) -> int:
+    """Shared memory the kernel needs at (k, na); mirrors csrc/polish.cu."""
+    nm = max(k, na)
+    return 4 * (3 * k * k + 2 * na * k + na * na + 9 * k + 5 * na + 4 * nm)
+
+
+def _check_inputs(Hr, Hr_true, DAn, C0, g1r, g2n, b_box, fix, d):
+    dev = _build.dispatch_device(Hr)
+    if DAn.dim() != 3 or DAn.shape[0] < 1:
+        raise ValueError(f"DAn must be (B>=1, na, k), got {tuple(DAn.shape)}")
+    B, na, k = DAn.shape
+    _build.check(Hr, "Hr", (B, k, k), device=dev)
+    _build.check(Hr_true, "Hr_true", (B, k, k), device=dev)
+    _build.check(DAn, "DAn", (B, na, k), device=dev)
+    for name, t in (("C0", C0), ("g1r", g1r), ("b_box", b_box), ("fix", fix)):
+        _build.check(t, name, (B, k), device=dev)
+    for name, t in (("g2n", g2n), ("d", d)):
+        _build.check(t, name, (B, na), device=dev)
+    if max(k, na) > MAX_N or smem_bytes(k, na) > _build.SMEM_LIMIT:
+        raise ValueError(f"box_candidate takes k, na <= {MAX_N} within one block's "
+                         f"shared memory, got k={k}, na={na}")
+    return dev, B, k, na
+
+
+def _mv(A, v):
+    return torch.bmm(A, v[:, :, None])[:, :, 0]
+
+
+def box_candidate_plain(Hr, Hr_true, DAn, C0, g1r, g2n, b_box, fix, d, *, refine: int):
+    """The same function as ``box_candidate`` in plain PyTorch."""
+    _check_inputs(Hr, Hr_true, DAn, C0, g1r, g2n, b_box, fix, d)
+    free = 1.0 - fix
+    Hm = Hr * free[:, :, None] * free[:, None, :] + torch.diag_embed(fix)
+    Hm_inv = spd_inverse_scaled(Hm, sweep_spd_inverse_plain)
+    DAnT = DAn.transpose(1, 2)
+    HD = torch.bmm(DAn, Hm_inv)                              # rows: Hm^{-1} DAn[b]'
+    S = torch.bmm(HD, DAnT) + torch.diag_embed((1.0 - d) + 1e-6)
+    S_inv = spd_inverse_scaled(S, sweep_spd_inverse_plain)
+
+    def kkt_solve(r1, r_fix, r2n):
+        t = free * (r1 - _mv(Hr, fix * r_fix)) + fix * r_fix
+        dw0 = _mv(Hm_inv, t)
+        dyn = _mv(S_inv, _mv(DAn, dw0) - r2n)
+        v = _mv(Hm_inv, free * _mv(DAnT, dyn))
+        return dw0 - v, dyn
+
+    w, yn = kkt_solve(g1r, b_box, g2n)
+    for _ in range(refine):
+        grad_r = C0 - _mv(Hr_true, w)
+        r1 = grad_r - _mv(DAnT, d * yn)
+        r_fix = b_box - w
+        r2n = g2n - (_mv(DAn, w) + (1.0 - d) * yn)
+        dw, dyn = kkt_solve(r1, fix * r_fix, r2n)
+        w = w + dw
+        yn = yn + dyn
+    return w, yn
+
+
+def box_candidate(Hr: torch.Tensor, Hr_true: torch.Tensor, DAn: torch.Tensor,
+                  C0: torch.Tensor, g1r: torch.Tensor, g2n: torch.Tensor,
+                  b_box: torch.Tensor, fix: torch.Tensor, d: torch.Tensor, *,
+                  refine: int):
+    """Batched box-eliminating polish candidate solve.
+
+    Args (float32, batched on axis 0): Hr/Hr_true (B, k, k), DAn (B, na, k),
+    C0/g1r/b_box/fix (B, k), g2n/d (B, na).
+    Returns (w (B, k), yn (B, na)).
+    """
+    dev, B, k, na = _check_inputs(Hr, Hr_true, DAn, C0, g1r, g2n, b_box, fix, d)
+    if dev.type == "cpu":
+        return box_candidate_plain(Hr, Hr_true, DAn, C0, g1r, g2n, b_box, fix, d,
+                                   refine=refine)
+    w, yn = torch.empty_like(C0), torch.empty_like(g2n)
+    P_, I_ = _build.PTR, _build.INT
+    fn = _build.function("box_candidate_launch", [P_] * 11 + [I_] * 4 + [P_])
+    _build.launch(fn, dev, *(_build.ptr(t) for t in (
+        Hr, Hr_true, DAn, C0, g1r, g2n, b_box, fix, d, w, yn)), B, k, na, int(refine))
+    box_candidate.launches += 1
+    return w, yn
+
+
+box_candidate.launches = 0

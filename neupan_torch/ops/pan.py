@@ -1,0 +1,193 @@
+"""PAN — the proximal alternating-minimization control step, batched.
+
+Port of ``neupan_tpu/ops/pan.py`` with the scenario batch as a leading
+axis. Each of ``iter_num`` iterations runs DUNE (the fused exact-selection
+path, ``ops/dune.py``), assembles the NRMP QP at the current nominal
+trajectory (``ops/nrmp.py``) and solves it (``ops/qp.py``). Convergence is
+a per-scenario ``done`` flag that freezes the carried iterates, so every
+scenario runs the same operations. ``PANState`` carries the convergence
+reference values and the QP warm start from one control step to the next.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import torch
+
+from neupan_torch import resolve_device, same_device
+from neupan_torch.ops.dune import DuneOutput, dune_forward_flow
+from neupan_torch.ops.nrmp import (AdjustParams, NRMPSpec, build_qp,
+                                   coefficients_from_dune, condensation,
+                                   unpack_solution)
+from neupan_torch.ops.qp import ADMMConfig, solve_qp
+from neupan_torch.robot import Robot
+
+_INF = 1e9
+
+
+@dataclasses.dataclass(frozen=True)
+class PANSpec:
+    robot: Robot
+    nrmp: NRMPSpec
+    iter_num: int = 2
+    iter_threshold: float = 0.1
+    dune_max_num: int = 100     # padded point capacity P
+    admm: ADMMConfig = ADMMConfig()
+    # ADMM budget of the PAN iterations after the first (None = admm.iters):
+    # they re-solve a nearly identical QP from the previous solution
+    admm_warm_iters: Optional[int] = 120
+
+
+class PANState(NamedTuple):
+    """Cross-step memory: convergence reference values + QP warm start.
+    Shapes per scenario; batched states carry a leading B."""
+
+    prev_mu: torch.Tensor          # (T+1, E, K)
+    prev_lam: torch.Tensor         # (T+1, 2, K)
+    prev_s: torch.Tensor           # (3, T+1)
+    prev_u: torch.Tensor           # (2, T)
+    prev_valid: torch.Tensor       # () bool
+    prev_has_points: torch.Tensor  # () bool
+    x_warm: torch.Tensor           # (n,)
+    y_warm: torch.Tensor           # (m,)
+
+
+class PANOutput(NamedTuple):
+    opt_s: torch.Tensor         # (B, 3, T+1)
+    opt_u: torch.Tensor         # (B, 2, T)
+    opt_d: torch.Tensor         # (B, T)
+    min_distance: torch.Tensor  # (B,)
+    nrmp_points: torch.Tensor   # (B, 2, K) frame-0 points fed to NRMP
+    nrmp_valid: torch.Tensor    # (B, K) bool
+    state: PANState
+
+
+def init_state(spec: PANSpec, device=None, dtype=torch.float32) -> PANState:
+    """The empty state of one scenario."""
+    dev = resolve_device(device)
+    T, E, K = spec.robot.T, spec.robot.edge_dim, max(spec.nrmp.K, 1)
+    z = lambda *shape: torch.zeros(shape, dtype=dtype, device=dev)
+    f = torch.zeros((), dtype=torch.bool, device=dev)
+    return PANState(prev_mu=z(T + 1, E, K), prev_lam=z(T + 1, 2, K),
+                    prev_s=z(3, T + 1), prev_u=z(2, T), prev_valid=f,
+                    prev_has_points=f.clone(), x_warm=z(spec.nrmp.n),
+                    y_warm=z(spec.nrmp.m))
+
+
+def _stop_diff(spec: PANSpec, state: PANState, s, u, dune: DuneOutput,
+               has_points, n_valid):
+    """Per-scenario convergence measure (reference pan.py:215-243)."""
+    su_diff = (torch.sum((s - state.prev_s) ** 2, dim=(1, 2))
+               + torch.sum((u - state.prev_u) ** 2, dim=(1, 2)))
+    K = spec.nrmp.K
+    col_mask = (torch.arange(K, device=s.device)[None, :] < n_valid[:, None]).to(s.dtype)
+    col_mask = col_mask[:, None, None, :]
+    denom = torch.clamp(n_valid, min=1).to(s.dtype)
+    mu_diff = torch.sqrt(torch.sum(((dune.mu_k - state.prev_mu) * col_mask) ** 2,
+                                   dim=(1, 2, 3))) / denom
+    lam_diff = torch.sqrt(torch.sum(((dune.lam_k - state.prev_lam) * col_mask) ** 2,
+                                    dim=(1, 2, 3))) / denom
+    mulam = mu_diff ** 2 + lam_diff ** 2
+    use_mulam = has_points & state.prev_has_points & (n_valid > 0)
+    return torch.where(use_mulam, mulam, su_diff)
+
+
+def _admm_with_elim(spec: PANSpec) -> ADMMConfig:
+    """Fill the condensed solver's row-layout statics from the NRMP layout:
+    equality rows (dynamics 3T + init 3) first, then the acc rows (general),
+    then unit bounds on w (speed, d box), then the soft obstacle rows."""
+    if spec.admm.elim_n_eq is not None:
+        return spec.admm
+    nrmp = spec.nrmp
+    return dataclasses.replace(spec.admm, elim_n_eq=nrmp.r_acc,
+                               elim_n_hard=nrmp.r_obs - nrmp.r_acc,
+                               elim_n_acc=nrmp.r_spd - nrmp.r_acc)
+
+
+def _where(keep: torch.Tensor, old: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+    """Per-scenario select: ``old`` where ``keep`` (B,) is set, else ``new``."""
+    return torch.where(keep.reshape(-1, *([1] * (old.dim() - 1))), old, new)
+
+
+@torch.no_grad()
+def pan_forward(spec: PANSpec, encoder, vertices: torch.Tensor, G: torch.Tensor,
+                h: torch.Tensor, adjust: AdjustParams,
+                nom_s: torch.Tensor, nom_u: torch.Tensor, ref_s: torch.Tensor,
+                ref_us: torch.Tensor, points: torch.Tensor,
+                velocities: torch.Tensor, mask: torch.Tensor,
+                state: PANState) -> PANOutput:
+    """One PAN control step for a batch of B scenarios.
+
+    Args:
+        encoder: ObsPointNet; vertices (2, V), G (E, 2), h (E, 1): the robot.
+        nom_s/ref_s (B, 3, T+1), nom_u (B, 2, T), ref_us (B, T);
+        points, velocities (B, 2, P) world frame, padded; mask (B, P) bool;
+        state: a batched PANState.
+
+    Inference only: the QP's backward pass comes with a later slice.
+    """
+    if spec.nrmp.no_obs:
+        raise NotImplementedError("the no-obstacle PAN step is not ported yet")
+    same_device(vertices, G, h, nom_s, nom_u, ref_s, ref_us, points, velocities,
+                mask, *state, *adjust, *(p for p in encoder.parameters()))
+    robot = spec.robot
+    T, K = robot.T, spec.nrmp.K
+    dtype = nom_s.dtype
+    has_points = torch.any(mask, dim=1)
+    n_valid = torch.clamp(torch.sum(mask.to(torch.int32), dim=1), max=K)
+
+    B = nom_s.shape[0]
+    done = torch.zeros((B,), dtype=torch.bool, device=nom_s.device)
+    min_distance = torch.full((B,), _INF, dtype=dtype, device=nom_s.device)
+    opt_d = torch.zeros((B, T), dtype=dtype, device=nom_s.device)
+    nrmp_pts = torch.zeros((B, 2, K), dtype=dtype, device=nom_s.device)
+    nrmp_val = torch.zeros((B, K), dtype=torch.bool, device=nom_s.device)
+    cur = state
+
+    admm = _admm_with_elim(spec)
+    admm_warm = (admm if spec.admm_warm_iters is None else
+                 dataclasses.replace(admm, iters=int(spec.admm_warm_iters)))
+    for it_i in range(spec.iter_num):
+        admm_i = admm if it_i == 0 else admm_warm
+        dune = dune_forward_flow(encoder, G, h, points, velocities, mask, nom_s,
+                                 robot.dt, K, vertices)
+
+        fa, fb = coefficients_from_dune(spec.nrmp, dune.mu_k, dune.lam_k,
+                                        dune.points_k, dune.valid_k, h, has_points)
+        A_dyn, B_dyn, C_dyn = robot.linearize(nom_s, nom_u)
+        qp = build_qp(spec.nrmp, adjust, nom_s, nom_u, ref_s, ref_us,
+                      A_dyn, B_dyn, C_dyn, fa, fb)
+        elim = condensation(spec.nrmp, A_dyn, B_dyn, C_dyn, nom_s[:, :, 0])
+        sol = solve_qp(qp, admm_i, cur.x_warm, cur.y_warm, elim)
+        s_new, u_new, d_new = unpack_solution(spec.nrmp, sol.x)
+
+        diff = _stop_diff(spec, cur, s_new, u_new, dune, has_points, n_valid)
+        newly_done = (diff < spec.iter_threshold) & cur.prev_valid
+
+        keep = done  # already converged: discard this iteration's work
+        upd = lambda old, new: _where(keep, old, new)
+        nom_s = upd(nom_s, s_new)
+        nom_u = upd(nom_u, u_new)
+        opt_d = upd(opt_d, d_new)
+        min_distance = upd(min_distance, dune.min_distance)
+        nrmp_pts = upd(nrmp_pts, dune.points_k[:, 0])
+        nrmp_val = upd(nrmp_val, dune.valid_k[:, 0])
+        cur = PANState(
+            prev_mu=upd(cur.prev_mu, dune.mu_k),
+            prev_lam=upd(cur.prev_lam, dune.lam_k),
+            prev_s=upd(cur.prev_s, s_new),
+            prev_u=upd(cur.prev_u, u_new),
+            prev_valid=cur.prev_valid | ~keep,
+            prev_has_points=upd(cur.prev_has_points, has_points),
+            x_warm=upd(cur.x_warm, sol.x),
+            y_warm=upd(cur.y_warm, sol.y),
+        )
+        done = done | newly_done
+
+    return PANOutput(
+        opt_s=nom_s, opt_u=nom_u, opt_d=opt_d,
+        min_distance=torch.where(has_points, min_distance,
+                                 torch.full_like(min_distance, _INF)),
+        nrmp_points=nrmp_pts, nrmp_valid=nrmp_val, state=cur)

@@ -1,0 +1,162 @@
+"""Write the JAX-package goldens that the PyTorch port's CPU tests hold it against.
+
+    PYTHONPATH=. python scripts/make_torch_goldens.py
+
+Runs the JAX package on the CPU and writes two files under
+``tests/golden/torch/``:
+
+* ``qp_solve.npz`` — three realistic NRMP QPs at the flagship shapes
+  (T=10, K=10, contact walls; ``tests/test_qp_condensed.py:
+  make_flagship_instance`` seeds 0-2), the warm start each is solved from
+  (an accurate solve of the same QP, perturbed — ``warm_start`` there),
+  and the JAX solution of the default condensed solver from that start.
+* ``planner_step.npz`` — two chained ``batched_planner_step`` calls at
+  T=4, P=128, K=5, B=4 with the DUNE selection on the fused kernel path
+  (``dune_pallas=True``, the Pallas select kernel in interpret mode), so
+  that the slot order is the one the port produces. Inputs come from a
+  numpy seed (``step_inputs``), which the test re-derives and compares.
+
+Compiling the JAX step and the accurate warm-start solves takes a few
+minutes on a CPU.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+os.environ["JAX_PLATFORMS"] = "cpu"
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GOLDEN_DIR = os.path.join(ROOT, "tests", "golden", "torch")
+QP_SEEDS = (0, 1, 2)
+STEP_SEED = 7
+STEP_SHAPE = dict(T=4, P=128, K=5, B=4)
+
+
+def diff_rollout(s0: np.ndarray, u: np.ndarray, dt: float) -> np.ndarray:
+    """Exact diff-drive rollout in float64: s0 (B, 3), u (B, 2, T) -> (B, 3, T+1)."""
+    s = [s0]
+    for t in range(u.shape[-1]):
+        x, y, phi = s[-1][:, 0], s[-1][:, 1], s[-1][:, 2]
+        v, w = u[:, 0, t], u[:, 1, t]
+        s.append(np.stack([x + dt * v * np.cos(phi), y + dt * v * np.sin(phi),
+                           phi + dt * w], axis=1))
+    return np.stack(s, axis=-1)
+
+
+def _points(rng, B, P):
+    """Obstacles ahead of and beside the robot, some within a few dm of it."""
+    pts = np.stack([rng.uniform(1.2, 7.0, (B, P)), rng.uniform(-4.0, 4.0, (B, P))], axis=1)
+    vels = rng.normal(scale=0.3, size=(B, 2, P)) * (np.arange(B) % 2)[:, None, None]
+    mask = rng.uniform(size=(B, P)) < 0.9
+    mask[-1] = np.arange(P) < 3          # fewer valid points than K
+    return pts.astype(np.float32), vels.astype(np.float32), mask
+
+
+def step_inputs(seed: int = STEP_SEED, T: int = 4, P: int = 128, K: int = 5,
+                B: int = 4, dt: float = 0.1) -> dict:
+    """The planner-step golden's inputs, from a numpy seed alone."""
+    rng = np.random.default_rng(seed)
+    s0 = np.stack([rng.uniform(-0.2, 0.2, B), rng.uniform(-0.2, 0.2, B),
+                   rng.uniform(-0.3, 0.3, B)], axis=1)
+    nom_u = np.zeros((B, 2, T))
+    nom_u[:, 0] = rng.uniform(0.5, 2.0, B)[:, None]
+    nom_u[:, 1] = rng.uniform(-0.3, 0.3, B)[:, None]
+    nom_s = diff_rollout(s0, nom_u, dt)
+    goal = s0 + np.array([4.0, 0.0, 0.0])
+    ref_s = np.linspace(s0, goal, T + 1, axis=-1)
+    ref_us = np.full((B, T), 4.0)
+    pts1, vels1, mask1 = _points(rng, B, P)
+    pts2, vels2, mask2 = _points(rng, B, P)
+    f32 = lambda a: np.asarray(a, np.float32)
+    return dict(nom_s=f32(nom_s), nom_u=f32(nom_u), ref_s=f32(ref_s), ref_us=f32(ref_us),
+                pts1=pts1, vels1=vels1, mask1=mask1, pts2=pts2, vels2=vels2, mask2=mask2)
+
+
+def _jax_setup():
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_default_matmul_precision", "highest")
+    sys.path.insert(0, ROOT)
+    return jax
+
+
+def write_qp_golden(path: str) -> None:
+    jax = _jax_setup()
+    from neupan_tpu.ops.qp import solve_qp
+    from tests.test_qp_condensed import layout_cfg, make_flagship_instance, warm_start
+
+    rec = {k: [] for k in ("P_diag", "q", "A", "l", "u", "soft", "Z", "xp",
+                           "x0", "y0", "x", "y")}
+    for seed in QP_SEEDS:
+        spec, qp, elim, _ = make_flagship_instance(seed, contact=True)
+        x0, y0 = warm_start(qp, spec, elim, seed=seed)
+        with jax.default_matmul_precision("highest"):
+            sol = solve_qp(qp, layout_cfg(spec), x0, y0, elim=elim)
+        for name, val in (("P_diag", qp.P_diag), ("q", qp.q), ("A", qp.A), ("l", qp.l),
+                          ("u", qp.u), ("soft", qp.soft), ("Z", elim[0]), ("xp", elim[1]),
+                          ("x0", x0), ("y0", y0), ("x", sol.x), ("y", sol.y)):
+            rec[name].append(np.asarray(val, np.float32))
+    np.savez(path, seeds=np.asarray(QP_SEEDS), T=spec.T, K=spec.K,
+             **{k: np.stack(v) for k, v in rec.items()})
+
+
+def write_step_golden(path: str) -> None:
+    jax = _jax_setup()
+    import functools
+
+    import jax.numpy as jnp
+
+    import neupan_tpu.ops.pallas.select as SEL
+    from neupan_tpu.models import obs_point_net
+    from neupan_tpu.ops.nrmp import AdjustParams, NRMPSpec
+    from neupan_tpu.ops.pan import PANSpec
+    from neupan_tpu.parallel import batched_init_state, batched_planner_step
+    from neupan_tpu.robot import Robot
+
+    T, P, K, B = (STEP_SHAPE[k] for k in ("T", "P", "K", "B"))
+    robot = Robot.create(receding=T, step_time=0.1, kinematics="diff", max_speed=[8, 1],
+                         max_acce=[8, 3], length=1.6, width=2.0)
+    nrmp = NRMPSpec(T=T, K=K, kinematics="diff", speed_bound=tuple(robot.speed_bound[:, 0]),
+                    acce_bound=tuple(robot.acce_bound[:, 0]))
+    spec = PANSpec(robot=robot, nrmp=nrmp, dune_max_num=P, dune_pallas=True)
+    params = obs_point_net.load_checkpoint(
+        os.path.join(ROOT, "examples/model/diff_robot_default/model.npz"))
+    G = jnp.asarray(robot.G, jnp.float32)
+    h = jnp.asarray(robot.h, jnp.float32)
+    f = lambda v: jnp.asarray(v, jnp.float32)
+    adjust = AdjustParams(q_s=f(1.0), p_u=f(1.0), eta=f(10.0), d_max=f(1.0), d_min=f(0.1))
+    inp = step_inputs(STEP_SEED, T, P, K, B)
+
+    orig = SEL.select_topk_flow_pallas
+    SEL.select_topk_flow_pallas = functools.partial(orig, interpret=True)
+    try:
+        step = jax.jit(lambda *a: batched_planner_step(spec, params, G, h, adjust, *a))
+        state = batched_init_state(spec, B)
+        ref_s, ref_us = f(inp["ref_s"]), f(inp["ref_us"])
+        out1 = step(f(inp["nom_s"]), f(inp["nom_u"]), ref_s, ref_us, f(inp["pts1"]),
+                    f(inp["vels1"]), jnp.asarray(inp["mask1"]), state)
+        out2 = step(out1.opt_s, out1.opt_u, ref_s, ref_us, f(inp["pts2"]), f(inp["vels2"]),
+                    jnp.asarray(inp["mask2"]), out1.state)
+    finally:
+        SEL.select_topk_flow_pallas = orig
+
+    res = {}
+    for i, out in ((1, out1), (2, out2)):
+        for name in ("opt_s", "opt_u", "opt_d", "min_distance", "nrmp_valid"):
+            res[f"{name}_{i}"] = np.asarray(getattr(out, name))
+    np.savez(path, seed=STEP_SEED, **STEP_SHAPE, **inp, **res)
+
+
+def main() -> None:
+    os.makedirs(GOLDEN_DIR, exist_ok=True)
+    write_step_golden(os.path.join(GOLDEN_DIR, "planner_step.npz"))
+    write_qp_golden(os.path.join(GOLDEN_DIR, "qp_solve.npz"))
+    print("wrote", GOLDEN_DIR)
+
+
+if __name__ == "__main__":
+    main()

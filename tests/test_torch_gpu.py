@@ -1,0 +1,180 @@
+"""The hand-written CUDA kernels and the planner step on a card.
+
+Each kernel is held against its plain PyTorch version on the same CUDA
+inputs; the planner step on the card against the same step on the CPU
+(plain versions), with every kernel launched as often as the step needs.
+Every test skips where there is no card. This file imports nothing of JAX,
+so it also runs on a machine without it:
+
+    python -m pytest --noconftest -q tests/test_torch_gpu.py
+
+The input builders here are shared with tests/test_torch_kernels.py.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from neupan_torch.ops.kernels import admm as AD
+from neupan_torch.ops.kernels import polish as PO
+from neupan_torch.ops.kernels import select as SE
+from neupan_torch.ops.kernels import sweep as SW
+from neupan_torch.robot import Robot
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ROBOT = dict(kinematics="diff", max_speed=[8, 1], max_acce=[8, 3], length=1.6, width=2.0)
+ADMM_KW = dict(iters=50, sigma=1e-6, alpha=1.6)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU or interpret mode")
+    return torch.device("cuda")
+
+
+# -- inputs, from numpy seeds --------------------------------------------------
+
+def t32(a, device="cpu"):
+    return torch.tensor(np.asarray(a), dtype=torch.float32, device=device)
+
+
+def select_inputs(B=2, Tp1=5, P=256, seed=0):
+    rng = np.random.default_rng(seed)
+    robot = Robot.create(receding=Tp1 - 1, step_time=0.1, **ROBOT)
+    pts = rng.uniform(-6, 8, (B, 2, P)).astype(np.float32)
+    vels = rng.normal(scale=0.3, size=(B, 2, P)).astype(np.float32)
+    mask = np.ones((B, P), dtype=bool)
+    mask[0, 200:] = False
+    theta = rng.uniform(-np.pi, np.pi, (B, Tp1)).astype(np.float32)
+    R = np.stack([np.stack([np.cos(theta), -np.sin(theta)], -1),
+                  np.stack([np.sin(theta), np.cos(theta)], -1)], -2).astype(np.float32)
+    trans = rng.uniform(-1, 1, (B, Tp1, 2)).astype(np.float32)
+    geom = [robot.vertices.astype(np.float32), robot.G.astype(np.float32),
+            robot.h.astype(np.float32)]
+    return pts, vels, mask, R, trans, robot.dt, geom
+
+
+def sweep_inputs(B, n, seed=0):
+    rng = np.random.default_rng(seed)
+    Q = rng.normal(size=(B, n, n))
+    M = Q @ np.swapaxes(Q, 1, 2) / n + np.eye(n)[None]
+    dj = 1 / np.sqrt(np.abs(np.einsum("bii->bi", M)))
+    return M * dj[:, :, None] * dj[:, None, :] + 1e-7 * np.eye(n)[None]
+
+
+def admm_inputs(B=16, m=148, k=30, seed=0):
+    """The shapes of tests/test_pallas.py's fused-ADMM test, with the normal
+    matrix inverse the phase loop would hand the kernel."""
+    rng = np.random.default_rng(seed)
+    Hs = rng.normal(size=(B, k, k))
+    Hs = Hs @ np.swapaxes(Hs, 1, 2) / k + np.eye(k)
+    As = rng.normal(size=(B, m, k)) * 0.3
+    qs = rng.normal(size=(B, k))
+    ls = rng.normal(size=(B, m)) - 1
+    us = ls + np.abs(rng.normal(size=(B, m))) + 0.5
+    soft = np.where(rng.uniform(size=(B, m)) < 0.5, 10.0, 0.0)
+    us = np.where(soft > 0, 1e20, us)
+    rho = np.repeat(rng.uniform(0.5, 2.0, (B, 1)), m, axis=1)   # one rho per scenario
+    M = Hs + 1e-6 * np.eye(k) + np.einsum("bmi,bm,bmj->bij", As, rho, As)
+    Minv = np.linalg.inv(M)
+    w0 = rng.normal(size=(B, k)) * 0.1
+    z0 = np.clip(np.einsum("bmk,bk->bm", As, w0), ls, us)
+    y0 = rng.normal(size=(B, m)) * 0.1
+    return [np.asarray(a, np.float32) for a in (Minv, As, qs, ls, us, soft, rho, w0, z0, y0)]
+
+
+def polish_inputs(B=9, k=30, na=18, seed=0):
+    """The shapes of tests/test_pallas.py's fused box-candidate test."""
+    rng = np.random.default_rng(seed)
+    Qm = rng.normal(size=(B, k, k))
+    Hr = Qm @ np.swapaxes(Qm, 1, 2) / k + np.eye(k)
+    Hr_ref = Hr - 1e-6 * np.eye(k)
+    DAn = rng.normal(size=(B, na, k)) * 0.3
+    d = (rng.uniform(size=(B, na)) < 0.6).astype(np.float64)
+    DAn = DAn / np.maximum(np.linalg.norm(DAn, axis=2, keepdims=True), 1e-8) * d[:, :, None]
+    C0 = rng.normal(size=(B, k))
+    g1r = rng.normal(size=(B, k))
+    g2n = rng.normal(size=(B, na)) * d
+    fix = (rng.uniform(size=(B, k)) < 0.4).astype(np.float64)
+    b_box = rng.normal(size=(B, k)) * fix
+    return [np.asarray(a, np.float32) for a in (Hr, Hr_ref, DAn, C0, g1r, g2n, b_box, fix, d)]
+
+
+# -- CUDA kernels vs their plain versions ----------------------------------------
+
+@pytest.mark.gpu
+def test_select_kernel_matches_plain(cuda):
+    pts, vels, mask, R, trans, dt, (V, G, h) = select_inputs(B=3, Tp1=11, P=2048, seed=3)
+    args = [torch.from_numpy(a).to(cuda) for a in (pts, vels, mask, R, trans)]
+    geo = [torch.from_numpy(a).to(cuda) for a in (V, G, h)]
+    n0 = SE.select_topk_flow.launches
+    keys, idx = SE.select_topk_flow(*args, dt, *geo, 10)
+    keys_p, idx_p = SE.select_topk_flow_plain(*args, dt, *geo, 10)
+    torch.cuda.synchronize()
+    assert SE.select_topk_flow.launches == n0 + 1
+    assert torch.equal(idx, idx_p)
+    torch.testing.assert_close(keys, keys_p, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,n", [(1, 30), (5, 33), (3, 90), (2, 96)])
+def test_sweep_kernel_matches_plain(cuda, B, n):
+    Mt = t32(sweep_inputs(B, n), cuda)
+    X, Xp = SW.sweep_spd_inverse(Mt), SW.sweep_spd_inverse_plain(Mt)
+    torch.cuda.synchronize()
+    assert float((X - Xp).abs().max() / Xp.abs().max()) < 3e-5
+
+
+@pytest.mark.gpu
+def test_admm_kernel_matches_plain(cuda):
+    args = [t32(a, cuda) for a in admm_inputs()]
+    out, ref = AD.admm_iterate(*args, **ADMM_KW), AD.admm_iterate_plain(*args, **ADMM_KW)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out[0], ref[0], rtol=0, atol=1e-4)
+    torch.testing.assert_close(out[1], ref[1], rtol=0, atol=1e-4)
+    torch.testing.assert_close(out[2], ref[2], rtol=1e-2, atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 9])
+def test_polish_kernel_matches_plain(cuda, B):
+    args = [t32(a, cuda) for a in polish_inputs(B=B)]
+    out = PO.box_candidate(*args, refine=7)
+    ref = PO.box_candidate_plain(*args, refine=7)
+    torch.cuda.synchronize()
+    for o, r in zip(out, ref):
+        assert float((o - r).abs().max() / r.abs().max().clamp(min=1e-9)) < 2e-4
+
+
+@pytest.mark.gpu
+def test_step_on_the_card_matches_cpu_and_launches_every_kernel(cuda):
+    """The planner-step golden's first call, on the card and on the CPU."""
+    from neupan_torch.models import load_checkpoint
+    from neupan_torch.ops.nrmp import AdjustParams, NRMPSpec
+    from neupan_torch.ops.pan import PANSpec
+    from neupan_torch.parallel import batched_init_state, batched_planner_step
+
+    with np.load(os.path.join(ROOT, "tests", "golden", "torch", "planner_step.npz")) as g:
+        g = {k: torch.from_numpy(g[k]) for k in g.files}
+    T, P, K, B = (int(g[k]) for k in "TPKB")
+    robot = Robot.create(receding=T, step_time=0.1, **ROBOT)
+    nrmp = NRMPSpec(T=T, K=K, kinematics="diff", speed_bound=tuple(robot.speed_bound[:, 0]),
+                    acce_bound=tuple(robot.acce_bound[:, 0]))
+    spec = PANSpec(robot=robot, nrmp=nrmp, dune_max_num=P)
+    ckpt = os.path.join(ROOT, "examples/model/diff_robot_default/model.npz")
+    args = [g[k] for k in ("nom_s", "nom_u", "ref_s", "ref_us", "pts1", "vels1", "mask1")]
+    adjust = AdjustParams(*(torch.tensor(v) for v in (1.0, 1.0, 10.0, 1.0, 0.1)))
+    ref = batched_planner_step(spec, load_checkpoint(ckpt, "cpu"), *robot.tensors("cpu"),
+                               adjust, *args, batched_init_state(spec, B, "cpu"))
+    wrappers = (SE.select_topk_flow, SW.sweep_spd_inverse, AD.admm_iterate, PO.box_candidate)
+    before = [w.launches for w in wrappers]
+    out = batched_planner_step(spec, load_checkpoint(ckpt, cuda), *robot.tensors(cuda),
+                               AdjustParams(*(t.to(cuda) for t in adjust)),
+                               *(a.to(cuda) for a in args), batched_init_state(spec, B, cuda))
+    torch.cuda.synchronize()
+    assert [w.launches - n for w, n in zip(wrappers, before)] == [2, 6, 4, 10]
+    assert float((out.opt_u.cpu() - ref.opt_u).abs().max()) <= 5e-4
+    assert torch.equal(out.nrmp_valid.cpu(), ref.nrmp_valid)
