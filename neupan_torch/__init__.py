@@ -47,3 +47,7 @@ def same_device(*tensors: torch.Tensor) -> torch.device:
     if len(devices) != 1:
         raise ValueError(f"inputs sit on different devices: {sorted(map(str, devices))}")
     return devices.pop()
+
+
+# the facade imports the modules above it, so it comes last
+from neupan_torch.planner import NeuPan, neupan  # noqa: E402,F401

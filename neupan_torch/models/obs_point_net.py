@@ -43,6 +43,24 @@ class ObsPointNet(nn.Module):
         return self.MLP(points)
 
     @staticmethod
+    def seeded(input_dim: int = 2, output_dim: int = 4, seed: int = 0,
+               device=None) -> "ObsPointNet":
+        """A randomly initialized encoder from a seeded ``torch.Generator``:
+        uniform in +-1/sqrt(fan_in) for weights and biases, LayerNorm at
+        one and zero (the JAX package's ``init_params`` distribution, not
+        its numbers)."""
+        dev = resolve_device(device)
+        net = ObsPointNet(input_dim, output_dim)
+        gen = torch.Generator().manual_seed(seed)
+        with torch.no_grad():
+            for idx in _LINEAR_IDX:
+                layer = net.MLP[idx]
+                bound = 1.0 / np.sqrt(layer.in_features)
+                for p in (layer.weight, layer.bias):
+                    p.copy_((torch.rand(p.shape, generator=gen) * 2.0 - 1.0) * bound)
+        return net.to(dev).eval()
+
+    @staticmethod
     def from_jax_params(params: Dict[str, np.ndarray], device=None) -> "ObsPointNet":
         """Build from the JAX package's parameter dict (numpy arrays)."""
         dev = resolve_device(device)

@@ -7,7 +7,9 @@ library, ``libneupan.so``, with a plain C interface, loaded with
 every file in ``csrc/`` and the flags, so a changed source builds anew and
 an unchanged one is loaded as it is.
 
-Flags: ``sm_90a`` (Hopper), ``-O3``, C++17, no fast-math. ``nvcc``'s
+Flags: ``sm_90a`` (Hopper), ``-O3``, C++17, no fast-math; ``--threads 0``
+compiles the sources side by side (the fully unrolled MLP kernel alone takes
+about as long as the others together). ``nvcc``'s
 resource report (``-Xptxas -v``: registers, shared memory, spills) is kept
 beside the library as ``libneupan.log``.
 
@@ -31,7 +33,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "neupan_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--threads", "0")
 
 SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
 
@@ -102,6 +104,7 @@ def launch(fn, device: torch.device, *args) -> None:
 # ctypes argument kinds for the launchers' signatures
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
+LONG = ctypes.c_longlong
 FLOAT = ctypes.c_float
 
 

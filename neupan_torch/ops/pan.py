@@ -1,12 +1,15 @@
 """PAN — the proximal alternating-minimization control step, batched.
 
 Port of ``neupan_tpu/ops/pan.py`` with the scenario batch as a leading
-axis. Each of ``iter_num`` iterations runs DUNE (the fused exact-selection
-path, ``ops/dune.py``), assembles the NRMP QP at the current nominal
-trajectory (``ops/nrmp.py``) and solves it (``ops/qp.py``). Convergence is
-a per-scenario ``done`` flag that freezes the carried iterates, so every
-scenario runs the same operations. ``PANState`` carries the convergence
-reference values and the QP warm start from one control step to the next.
+axis. Each of ``iter_num`` iterations runs DUNE (``ops/dune.py``: the fused
+exact-selection path, or the materialized point flow with either ranking,
+as ``PANSpec`` says), assembles the NRMP QP at the current nominal
+trajectory (``ops/nrmp.py``) and solves it (``ops/qp.py``). With no
+obstacle slots (``nrmp.K == 0``) the step is the tracking QP alone.
+Convergence is a per-scenario ``done`` flag that freezes the carried
+iterates, so every scenario runs the same operations. ``PANState`` carries
+the convergence reference values and the QP warm start from one control
+step to the next.
 """
 
 from __future__ import annotations
@@ -17,7 +20,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from neupan_torch import resolve_device, same_device
-from neupan_torch.ops.dune import DuneOutput, dune_forward_flow
+from neupan_torch.ops.dune import (DuneOutput, dune_forward, dune_forward_flow,
+                                   generate_point_flow)
 from neupan_torch.ops.nrmp import (AdjustParams, NRMPSpec, build_qp,
                                    coefficients_from_dune, condensation,
                                    unpack_solution)
@@ -38,6 +42,41 @@ class PANSpec:
     # ADMM budget of the PAN iterations after the first (None = admm.iters):
     # they re-solve a nearly identical QP from the previous solution
     admm_warm_iters: Optional[int] = 120
+    # Matmul precision of the whole step. The package pins exact float32
+    # (TF32 off, neupan_torch/__init__.py): reduced precision breaks the
+    # solver's accuracy contract, so "highest" is the only value taken.
+    precision: str = "highest"
+    # Top-k obstacle selection: "exact" ranks points by the closed-form
+    # polygon distance and runs the encoder on the K winners per frame;
+    # "mlp" is the reference-parity ranking by the learned distance, which
+    # pays the encoder on every point.
+    dune_select: str = "exact"
+    # Rank through the selection kernels (the JAX package's dune_pallas).
+    # None = auto: on with dune_select="exact", on either device (a kernel
+    # wrapper runs its plain version for CPU tensors). With "exact" this
+    # also picks the fused path, which never materializes the point flow.
+    dune_kernel: Optional[bool] = None
+    # Run the encoder through the fused MLP kernel (the JAX package's
+    # dune_mlp_pallas). None = auto: off, as in the JAX package.
+    dune_mlp_kernel: Optional[bool] = None
+
+    def __post_init__(self):
+        if self.precision != "highest":
+            raise ValueError(
+                f'precision={self.precision!r}: neupan_torch pins exact float32 matmuls '
+                '(TF32 off), so only "highest" is available')
+        if self.dune_select not in ("exact", "mlp"):
+            raise ValueError(f'dune_select must be "exact" or "mlp", got {self.dune_select!r}')
+
+    def use_dune_kernel(self) -> bool:
+        if self.dune_kernel is not None:
+            return self.dune_kernel
+        return self.dune_select == "exact"
+
+    def use_dune_mlp_kernel(self) -> bool:
+        if self.dune_mlp_kernel is not None:
+            return self.dune_mlp_kernel
+        return False
 
 
 class PANState(NamedTuple):
@@ -57,7 +96,7 @@ class PANState(NamedTuple):
 class PANOutput(NamedTuple):
     opt_s: torch.Tensor         # (B, 3, T+1)
     opt_u: torch.Tensor         # (B, 2, T)
-    opt_d: torch.Tensor         # (B, T)
+    opt_d: Optional[torch.Tensor]  # (B, T), or None without obstacle slots
     min_distance: torch.Tensor  # (B,)
     nrmp_points: torch.Tensor   # (B, 2, K) frame-0 points fed to NRMP
     nrmp_valid: torch.Tensor    # (B, K) bool
@@ -76,11 +115,14 @@ def init_state(spec: PANSpec, device=None, dtype=torch.float32) -> PANState:
                     y_warm=z(spec.nrmp.m))
 
 
-def _stop_diff(spec: PANSpec, state: PANState, s, u, dune: DuneOutput,
-               has_points, n_valid):
-    """Per-scenario convergence measure (reference pan.py:215-243)."""
+def _stop_diff(spec: PANSpec, state: PANState, s, u, dune: Optional[DuneOutput],
+               has_points=None, n_valid=None):
+    """Per-scenario convergence measure (reference pan.py:215-243); without
+    a DUNE output, the change of the trajectory alone."""
     su_diff = (torch.sum((s - state.prev_s) ** 2, dim=(1, 2))
                + torch.sum((u - state.prev_u) ** 2, dim=(1, 2)))
+    if dune is None:
+        return su_diff
     K = spec.nrmp.K
     col_mask = (torch.arange(K, device=s.device)[None, :] < n_valid[:, None]).to(s.dtype)
     col_mask = col_mask[:, None, None, :]
@@ -102,7 +144,7 @@ def _admm_with_elim(spec: PANSpec) -> ADMMConfig:
         return spec.admm
     nrmp = spec.nrmp
     return dataclasses.replace(spec.admm, elim_n_eq=nrmp.r_acc,
-                               elim_n_hard=nrmp.r_obs - nrmp.r_acc,
+                               elim_n_hard=(nrmp.m if nrmp.no_obs else nrmp.r_obs) - nrmp.r_acc,
                                elim_n_acc=nrmp.r_spd - nrmp.r_acc)
 
 
@@ -128,10 +170,10 @@ def pan_forward(spec: PANSpec, encoder, vertices: torch.Tensor, G: torch.Tensor,
 
     Inference only: the QP's backward pass comes with a later slice.
     """
-    if spec.nrmp.no_obs:
-        raise NotImplementedError("the no-obstacle PAN step is not ported yet")
     same_device(vertices, G, h, nom_s, nom_u, ref_s, ref_us, points, velocities,
                 mask, *state, *adjust, *(p for p in encoder.parameters()))
+    if spec.nrmp.no_obs:
+        return _pan_forward_no_obs(spec, adjust, nom_s, nom_u, ref_s, ref_us, state)
     robot = spec.robot
     T, K = robot.T, spec.nrmp.K
     dtype = nom_s.dtype
@@ -146,13 +188,21 @@ def pan_forward(spec: PANSpec, encoder, vertices: torch.Tensor, G: torch.Tensor,
     nrmp_val = torch.zeros((B, K), dtype=torch.bool, device=nom_s.device)
     cur = state
 
+    use_kernel, mlp_kernel = spec.use_dune_kernel(), spec.use_dune_mlp_kernel()
     admm = _admm_with_elim(spec)
     admm_warm = (admm if spec.admm_warm_iters is None else
                  dataclasses.replace(admm, iters=int(spec.admm_warm_iters)))
     for it_i in range(spec.iter_num):
         admm_i = admm if it_i == 0 else admm_warm
-        dune = dune_forward_flow(encoder, G, h, points, velocities, mask, nom_s,
-                                 robot.dt, K, vertices)
+        if use_kernel and spec.dune_select == "exact":
+            # fused path: the per-frame point flow is never materialized
+            dune = dune_forward_flow(encoder, G, h, points, velocities, mask, nom_s,
+                                     robot.dt, K, vertices, mlp_kernel=mlp_kernel)
+        else:
+            pf, R_all, pts_glob = generate_point_flow(nom_s, points, velocities, robot.dt)
+            dune = dune_forward(encoder, G, h, pf, R_all, pts_glob, mask, K,
+                                use_kernel=use_kernel, select=spec.dune_select,
+                                vertices=vertices, mlp_kernel=mlp_kernel)
 
         fa, fb = coefficients_from_dune(spec.nrmp, dune.mu_k, dune.lam_k,
                                         dune.points_k, dune.valid_k, h, has_points)
@@ -191,3 +241,45 @@ def pan_forward(spec: PANSpec, encoder, vertices: torch.Tensor, G: torch.Tensor,
         min_distance=torch.where(has_points, min_distance,
                                  torch.full_like(min_distance, _INF)),
         nrmp_points=nrmp_pts, nrmp_valid=nrmp_val, state=cur)
+
+
+def _pan_forward_no_obs(spec: PANSpec, adjust: AdjustParams, nom_s, nom_u, ref_s, ref_us,
+                        state: PANState) -> PANOutput:
+    """The step without obstacle handling (``nrmp.K == 0``): the tracking QP
+    alone, ``iter_num`` times; ``opt_d`` is None."""
+    robot = spec.robot
+    B, dtype, dev = nom_s.shape[0], nom_s.dtype, nom_s.device
+    done = torch.zeros((B,), dtype=torch.bool, device=dev)
+    cur = state
+    admm = _admm_with_elim(spec)
+
+    for _ in range(spec.iter_num):
+        A_dyn, B_dyn, C_dyn = robot.linearize(nom_s, nom_u)
+        qp = build_qp(spec.nrmp, adjust, nom_s, nom_u, ref_s, ref_us, A_dyn, B_dyn, C_dyn)
+        elim = condensation(spec.nrmp, A_dyn, B_dyn, C_dyn, nom_s[:, :, 0])
+        sol = solve_qp(qp, admm, cur.x_warm, cur.y_warm, elim)
+        s_new, u_new, _ = unpack_solution(spec.nrmp, sol.x)
+
+        diff = _stop_diff(spec, cur, s_new, u_new, None)
+        newly_done = (diff < spec.iter_threshold) & cur.prev_valid
+
+        keep = done
+        upd = lambda old, new: _where(keep, old, new)
+        nom_s = upd(nom_s, s_new)
+        nom_u = upd(nom_u, u_new)
+        cur = cur._replace(
+            prev_s=upd(cur.prev_s, s_new),
+            prev_u=upd(cur.prev_u, u_new),
+            prev_valid=cur.prev_valid | ~keep,
+            prev_has_points=cur.prev_has_points & keep,
+            x_warm=upd(cur.x_warm, sol.x),
+            y_warm=upd(cur.y_warm, sol.y),
+        )
+        done = done | newly_done
+
+    K = max(spec.nrmp.K, 1)
+    return PANOutput(
+        opt_s=nom_s, opt_u=nom_u, opt_d=None,
+        min_distance=torch.full((B,), _INF, dtype=dtype, device=dev),
+        nrmp_points=torch.zeros((B, 2, K), dtype=dtype, device=dev),
+        nrmp_valid=torch.zeros((B, K), dtype=torch.bool, device=dev), state=cur)

@@ -399,12 +399,15 @@ def solve_qp(qp: QPData, cfg: ADMMConfig, x0: torch.Tensor, y0: torch.Tensor,
 
     ``elim`` = (Z (B, n, k), xp (B, n)) is the equality-elimination basis
     (ops/nrmp.py:condensation); ``cfg`` must carry the row-layout statics
-    (ops/pan.py:_admm_with_elim) and the QP its soft rows.
+    (ops/pan.py:_admm_with_elim). ``qp.soft`` may be None (the no-obstacle
+    problem has no soft rows).
     """
     if cfg.elim_n_eq is None or cfg.elim_n_hard is None or cfg.elim_n_acc is None:
         raise NotImplementedError("only the condensed, box-eliminating solver path is ported")
     if qp.soft is None:
-        raise NotImplementedError("only QPs with soft rows (obstacle mode) are ported")
+        # no soft rows: an all-zero penalty marks every row hard and adds
+        # exact zeros wherever the soft terms enter
+        qp = qp._replace(soft=torch.zeros_like(qp.l))
     n_eq = cfg.elim_n_eq
     Aeq = qp.A[:, :n_eq]
     Geq = torch.bmm(Aeq, Aeq.transpose(1, 2)) + 1e-8 * torch.eye(

@@ -115,6 +115,10 @@ class Robot:
         return self.n_vertices
 
     @property
+    def L(self) -> Optional[float]:
+        return self.wheelbase
+
+    @property
     def speed_bound(self) -> np.ndarray:
         return np.array(self.max_speed, dtype=np.float64).reshape(2, 1)
 

@@ -1,9 +1,11 @@
 """Write the JAX-package goldens that the PyTorch port's CPU tests hold it against.
 
-    PYTHONPATH=. python scripts/make_torch_goldens.py
+    PYTHONPATH=. python scripts/make_torch_goldens.py [name ...]
 
-Runs the JAX package on the CPU and writes two files under
-``tests/golden/torch/``:
+Runs the JAX package on the CPU and writes the files under
+``tests/golden/torch/`` (all of them, or the named ones: ``planner_step``,
+``qp_solve``, ``planner_step_mlp``, ``planner_step_noobs``,
+``facade_corridor``):
 
 * ``qp_solve.npz`` — three realistic NRMP QPs at the flagship shapes
   (T=10, K=10, contact walls; ``tests/test_qp_condensed.py:
@@ -15,6 +17,19 @@ Runs the JAX package on the CPU and writes two files under
   (``dune_pallas=True``, the Pallas select kernel in interpret mode), so
   that the slot order is the one the port produces. Inputs come from a
   numpy seed (``step_inputs``), which the test re-derives and compares.
+* ``planner_step_mlp.npz`` — the same two chained calls with
+  ``dune_select="mlp"``: the reference-parity ranking by the learned
+  distance on the materialized point flow (no Pallas kernel on the CPU).
+* ``planner_step_noobs.npz`` — the same two chained calls without obstacle
+  slots (K=0): the tracking QP alone.
+* ``facade_corridor.npz`` — 20 control ticks of the ``NeuPan`` facade built
+  from ``examples/corridor/diff/planner.yaml``: the states it was fed (its
+  own closed loop through the exact diff-drive kinematics), the seeded
+  obstacle points of each tick (``facade_points``; one tick has more points
+  than the planner's capacity), and the action, minimum distance and flags
+  it returned. Off the TPU the JAX planner ranks on the materialized flow
+  without the Pallas kernel, so the port is compared with its selection
+  kernel switched off.
 
 Compiling the JAX step and the accurate warm-start solves takes a few
 minutes on a CPU.
@@ -104,7 +119,56 @@ def write_qp_golden(path: str) -> None:
              **{k: np.stack(v) for k, v in rec.items()})
 
 
-def write_step_golden(path: str) -> None:
+FACADE_YAML = "examples/corridor/diff/planner.yaml"
+FACADE_SEED = 11
+FACADE_TICKS = 20
+FACADE_PMAX = 160      # the widest tick; the planner's capacity is 100
+
+
+def facade_points(seed: int = FACADE_SEED, ticks: int = FACADE_TICKS):
+    """Seeded obstacle points of each tick: two ragged walls beside the
+    corridor's centre line (y = 20) and a few loose points ahead, in world
+    coordinates. Returns pts (ticks, 2, FACADE_PMAX) float32 and the count
+    of real columns per tick; tick 3 exceeds the planner's capacity."""
+    rng = np.random.default_rng(seed)
+    pts = np.zeros((ticks, 2, FACADE_PMAX), np.float32)
+    counts = np.zeros((ticks,), np.int64)
+    for i in range(ticks):
+        n = FACADE_PMAX if i == 3 else int(rng.integers(40, 100))
+        x = rng.uniform(0.0, 14.0, n)
+        side = np.where(rng.uniform(size=n) < 0.5, 1.0, -1.0)
+        y = 20.0 + side * rng.uniform(1.6, 4.0, n)
+        loose = rng.uniform(size=n) < 0.1
+        x = np.where(loose, rng.uniform(6.0, 12.0, n), x)
+        y = np.where(loose, 20.0 + rng.uniform(-1.2, 1.2, n), y)
+        pts[i, :, :n] = np.stack([x, y])
+        counts[i] = n
+    return pts, counts
+
+
+def write_facade_golden(path: str) -> None:
+    _jax_setup()
+    from neupan_tpu.planner import NeuPan
+
+    planner = NeuPan.init_from_yaml(os.path.join(ROOT, FACADE_YAML))
+    pts, counts = facade_points()
+    state = np.array([[0.0], [20.0], [0.0]])
+    rec = {k: [] for k in ("state", "action", "min_distance", "stop", "arrive", "collision")}
+    for i in range(FACADE_TICKS):
+        action, info = planner(state, pts[i, :, :counts[i]].astype(np.float64))
+        rec["state"].append(state.copy())
+        rec["action"].append(np.asarray(action, np.float64))
+        rec["min_distance"].append(planner.min_distance)
+        for flag in ("stop", "arrive", "collision"):
+            rec[flag].append(bool(info[flag]))
+        state = diff_rollout(state[:, 0][None], np.asarray(action)[None], planner.dt)[0, :, 1:2]
+    np.savez(path, seed=FACADE_SEED, points=pts, counts=counts,
+             **{k: np.asarray(v) for k, v in rec.items()})
+
+
+def write_step_golden(path: str, variant: str = "fused") -> None:
+    """``variant``: "fused" (exact ranking, Pallas select in interpret mode),
+    "mlp" (learned-distance ranking) or "noobs" (K=0)."""
     jax = _jax_setup()
     import functools
 
@@ -120,9 +184,12 @@ def write_step_golden(path: str) -> None:
     T, P, K, B = (STEP_SHAPE[k] for k in ("T", "P", "K", "B"))
     robot = Robot.create(receding=T, step_time=0.1, kinematics="diff", max_speed=[8, 1],
                          max_acce=[8, 3], length=1.6, width=2.0)
-    nrmp = NRMPSpec(T=T, K=K, kinematics="diff", speed_bound=tuple(robot.speed_bound[:, 0]),
+    nrmp = NRMPSpec(T=T, K=0 if variant == "noobs" else K, kinematics="diff",
+                    speed_bound=tuple(robot.speed_bound[:, 0]),
                     acce_bound=tuple(robot.acce_bound[:, 0]))
-    spec = PANSpec(robot=robot, nrmp=nrmp, dune_max_num=P, dune_pallas=True)
+    spec = {"fused": PANSpec(robot=robot, nrmp=nrmp, dune_max_num=P, dune_pallas=True),
+            "mlp": PANSpec(robot=robot, nrmp=nrmp, dune_max_num=P, dune_select="mlp"),
+            "noobs": PANSpec(robot=robot, nrmp=nrmp, dune_max_num=P)}[variant]
     params = obs_point_net.load_checkpoint(
         os.path.join(ROOT, "examples/model/diff_robot_default/model.npz"))
     G = jnp.asarray(robot.G, jnp.float32)
@@ -147,15 +214,29 @@ def write_step_golden(path: str) -> None:
     res = {}
     for i, out in ((1, out1), (2, out2)):
         for name in ("opt_s", "opt_u", "opt_d", "min_distance", "nrmp_valid"):
-            res[f"{name}_{i}"] = np.asarray(getattr(out, name))
+            if getattr(out, name) is not None:      # opt_d is None without obstacle slots
+                res[f"{name}_{i}"] = np.asarray(getattr(out, name))
     np.savez(path, seed=STEP_SEED, **STEP_SHAPE, **inp, **res)
 
 
+WRITERS = {
+    "planner_step": lambda p: write_step_golden(p, "fused"),
+    "qp_solve": write_qp_golden,
+    "planner_step_mlp": lambda p: write_step_golden(p, "mlp"),
+    "planner_step_noobs": lambda p: write_step_golden(p, "noobs"),
+    "facade_corridor": write_facade_golden,
+}
+
+
 def main() -> None:
+    names = sys.argv[1:] or list(WRITERS)
+    unknown = [n for n in names if n not in WRITERS]
+    if unknown:
+        sys.exit(f"unknown golden {unknown}; choose from {list(WRITERS)}")
     os.makedirs(GOLDEN_DIR, exist_ok=True)
-    write_step_golden(os.path.join(GOLDEN_DIR, "planner_step.npz"))
-    write_qp_golden(os.path.join(GOLDEN_DIR, "qp_solve.npz"))
-    print("wrote", GOLDEN_DIR)
+    for name in names:
+        WRITERS[name](os.path.join(GOLDEN_DIR, f"{name}.npz"))
+        print("wrote", name)
 
 
 if __name__ == "__main__":

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from neupan_torch.ops.kernels import admm as AD
+from neupan_torch.ops.kernels import mlp as ML
 from neupan_torch.ops.kernels import polish as PO
 from neupan_torch.ops.kernels import select as SE
 from neupan_torch.ops.kernels import sweep as SW
@@ -106,8 +107,9 @@ def polish_inputs(B=9, k=30, na=18, seed=0):
 # -- CUDA kernels vs their plain versions ----------------------------------------
 
 @pytest.mark.gpu
-def test_select_kernel_matches_plain(cuda):
-    pts, vels, mask, R, trans, dt, (V, G, h) = select_inputs(B=3, Tp1=11, P=2048, seed=3)
+@pytest.mark.parametrize("B,P", [(3, 2048), (1, 100)])     # the flagship's and the facade's
+def test_select_kernel_matches_plain(cuda, B, P):
+    pts, vels, mask, R, trans, dt, (V, G, h) = select_inputs(B=B, Tp1=11, P=P, seed=3)
     args = [torch.from_numpy(a).to(cuda) for a in (pts, vels, mask, R, trans)]
     geo = [torch.from_numpy(a).to(cuda) for a in (V, G, h)]
     n0 = SE.select_topk_flow.launches
@@ -117,6 +119,114 @@ def test_select_kernel_matches_plain(cuda):
     assert SE.select_topk_flow.launches == n0 + 1
     assert torch.equal(idx, idx_p)
     torch.testing.assert_close(keys, keys_p, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_select_kernel_on_a_materialized_flow_matches_plain_and_the_flow_kernel(cuda):
+    """The same frames through both selection kernels: identical indices."""
+    pts, vels, mask, R, trans, dt, (V, G, h) = select_inputs(B=3, Tp1=11, P=2048, seed=4)
+    pts, vels, mask, R, trans = (torch.from_numpy(a).to(cuda) for a in (pts, vels, mask, R, trans))
+    geo = [torch.from_numpy(a).to(cuda) for a in (V, G, h)]
+    tf = SE.flow_tables(R, trans, dt, *geo)[0]
+    flow = torch.stack(SE.flow_from_tables(pts, vels, tf), dim=2).contiguous()
+    n0 = SE.select_topk.launches
+    keys, idx = SE.select_topk(flow, mask, *geo, 10)
+    keys_p, idx_p = SE.select_topk_plain(flow, mask, *geo, 10)
+    keys_f, idx_f = SE.select_topk_flow(pts, vels, mask, R, trans, dt, *geo, 10)
+    torch.cuda.synchronize()
+    assert SE.select_topk.launches == n0 + 1
+    assert torch.equal(idx, idx_p) and torch.equal(idx, idx_f)
+    torch.testing.assert_close(keys, keys_p, rtol=0, atol=0)
+    torch.testing.assert_close(keys, keys_f, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["diff_robot_default", "acker_robot_default",
+                                   "polygon_robot"])
+@pytest.mark.parametrize("N", [1, 77, 300, 56320, 1000003])
+def test_mlp_kernel_matches_plain_and_the_module(cuda, model, N):
+    """The ragged end included (N is no multiple of the block).
+
+    In a million points a few leave a LayerNorm 32 nearly equal activations,
+    where it amplifies float32 rounding to about 1e-5 in any evaluation
+    order, so how far a float32 evaluation sits from float64 grows with the
+    number of points: for the acker checkpoint on points uniform in
+    [-10, 10]^2 the kernel reads 7.5e-6 at 1,000,003 points and 1.3e-5 at
+    8,000,000 (scripts/exp_mlp_float32_noise.py, H100). The absolute 1e-5
+    against float64 below therefore holds for the sizes of this test and
+    not beyond about a million points. The bound that holds at any size is
+    the relative one: the kernel is no further from float64 than twice the
+    plain version or the nn.Sequential route, which are float32 evaluations
+    themselves, and within 1e-5 of each of them once their own distance
+    from float64 is allowed for."""
+    from neupan_torch.models import load_checkpoint
+
+    enc = load_checkpoint(os.path.join(ROOT, "examples/model", model, "model.npz"), cuda)
+    rng = np.random.default_rng(N)
+    pts = t32(rng.uniform(-10, 10, (N, 2)), cuda)
+    n0 = ML.dune_mlp.launches
+    with torch.no_grad():
+        out = ML.dune_mlp(enc, pts)
+        packed = ML.pack_weights(enc)
+        ref = ML.dune_mlp_plain(packed, pts, out.shape[-1])
+        ref64 = ML.dune_mlp_plain(packed.double(), pts.double(), out.shape[-1])
+        mod = enc(pts)
+    torch.cuda.synchronize()
+    assert ML.dune_mlp.launches == n0 + 1
+    err = lambda a, b: float((a.double() - b.double()).abs().max())
+    errs = dict(kernel_f64=err(out, ref64), plain_f64=err(ref, ref64), module_f64=err(mod, ref64),
+                kernel_plain=err(out, ref), kernel_module=err(out, mod))
+    assert errs["kernel_f64"] <= 1e-5, errs
+    assert errs["kernel_f64"] <= 1e-6 + 2.0 * max(errs["plain_f64"], errs["module_f64"]), errs
+    assert errs["kernel_plain"] <= 1e-5 + errs["plain_f64"], errs
+    assert errs["kernel_module"] <= 1e-5 + errs["module_f64"], errs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("E", [1, 3, 5, 8])
+def test_mlp_kernel_takes_other_head_widths(cuda, E):
+    """A polygon with E edges gives the head E columns; only E=4 stores 16 bytes at once."""
+    from neupan_torch.models import ObsPointNet
+
+    enc = ObsPointNet.seeded(2, E, seed=E, device=cuda)
+    pts = t32(np.random.default_rng(E).uniform(-6, 6, (5, 1001, 2)), cuda)
+    with torch.no_grad():
+        out = ML.dune_mlp(enc, pts)
+        ref = ML.dune_mlp_plain(ML.pack_weights(enc), pts, E)
+    torch.cuda.synchronize()
+    assert out.shape == (5, 1001, E)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_mlp_kernel_refuses_a_gradient_and_a_foreign_encoder(cuda):
+    from neupan_torch.models import load_checkpoint
+
+    ckpt = os.path.join(ROOT, "examples/model/diff_robot_default/model.npz")
+    pts = torch.zeros((4, 2), device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ML.dune_mlp(load_checkpoint(ckpt, cuda), pts)
+    with pytest.raises(ValueError, match="encoder is on"):
+        ML.dune_mlp(load_checkpoint(ckpt, "cpu"), pts.detach())
+
+
+@pytest.mark.gpu
+def test_mlp_kernel_refuses_misaligned_points(cuda):
+    """The kernel reads a point as one 8-byte word: a contiguous view at an
+    odd float offset must raise in the wrapper, not fault on the card."""
+    from neupan_torch.models import load_checkpoint
+
+    enc = load_checkpoint(os.path.join(ROOT, "examples/model/diff_robot_default/model.npz"), cuda)
+    buf = torch.zeros(2 * 64 + 1, device=cuda)
+    odd = buf[1:].view(-1, 2)
+    assert odd.is_contiguous() and odd.data_ptr() % 8 == 4
+    n0 = ML.dune_mlp.launches
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="8-byte"):
+            ML.dune_mlp(enc, odd)
+        out = ML.dune_mlp(enc, odd.clone())          # and the card still answers
+    torch.cuda.synchronize()
+    assert ML.dune_mlp.launches == n0 + 1 and bool(torch.isfinite(out).all())
 
 
 @pytest.mark.gpu
@@ -147,6 +257,59 @@ def test_polish_kernel_matches_plain(cuda, B):
     torch.cuda.synchronize()
     for o, r in zip(out, ref):
         assert float((o - r).abs().max() / r.abs().max().clamp(min=1e-9)) < 2e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("select,use_kernel,counts", [("exact", True, [1, 1]), ("mlp", True, [0, 1]),
+                                                      ("exact", False, [0, 0])])
+def test_dune_forward_on_the_card_matches_cpu(cuda, select, use_kernel, counts):
+    """The materialized DUNE paths: the card launches the kernels the
+    switches name and agrees with the CPU on one point flow."""
+    from neupan_torch.models import load_checkpoint
+    from neupan_torch.ops.dune import dune_forward, generate_point_flow
+
+    pts, vels, mask, _, _, dt, _ = select_inputs(B=3, Tp1=5, P=256, seed=5)
+    robot = Robot.create(receding=4, step_time=dt, **ROBOT)
+    rng = np.random.default_rng(6)
+    nom_s = t32(rng.uniform(-0.5, 0.5, (3, 3, 5)))
+    ckpt = os.path.join(ROOT, "examples/model/diff_robot_default/model.npz")
+    with torch.no_grad():
+        pf, R, pg = generate_point_flow(nom_s.to(cuda), t32(pts, cuda), t32(vels, cuda), dt)
+        before = [SE.select_topk.launches, ML.dune_mlp.launches]
+        out = dune_forward(load_checkpoint(ckpt, cuda), *robot.tensors(cuda)[1:], pf, R, pg,
+                           torch.from_numpy(mask).to(cuda), 6, use_kernel=use_kernel,
+                           select=select, vertices=robot.tensors(cuda)[0])
+        torch.cuda.synchronize()
+        assert [SE.select_topk.launches - before[0], ML.dune_mlp.launches - before[1]] == counts
+        ref = dune_forward(load_checkpoint(ckpt, "cpu"), *robot.tensors("cpu")[1:], pf.cpu(),
+                           R.cpu(), pg.cpu(), torch.from_numpy(mask), 6, use_kernel=use_kernel,
+                           select=select, vertices=robot.tensors("cpu")[0])
+    assert torch.equal(out.valid_k.cpu(), ref.valid_k)
+    torch.testing.assert_close(out.dist_k.cpu(), ref.dist_k, rtol=0, atol=1e-5)
+    torch.testing.assert_close(out.mu_k.cpu().sum(-1), ref.mu_k.sum(-1), rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("config", ["corridor", "pf"])
+def test_facade_plans_on_the_card_by_default(cuda, config):
+    """Three ticks on the card (a batch of one; with "pf" the K=0 step and
+    the tracking QP's sizes) against a CPU planner fed the same inputs."""
+    from neupan_torch import NeuPan
+
+    path = os.path.join(ROOT, "examples", config, "diff", "planner.yaml")
+    planner, on_cpu = NeuPan.init_from_yaml(path), NeuPan.init_from_yaml(path, device="cpu")
+    assert planner.G.is_cuda
+    state = np.array(planner.ipath.waypoints[0][:3], dtype=np.float64).reshape(3, 1)
+    wall = state[:2] + np.array([[5.0, 7.0, 3.0], [2.4, -2.2, 2.1]])
+    for _ in range(3):
+        action, info = planner(state, wall)
+        action_c, _ = on_cpu(state, wall)
+        assert info["state_tensor"].is_cuda and np.isfinite(action).all()
+        assert (info["distance_tensor"] is None) == (config == "pf")
+        np.testing.assert_allclose(action, action_c, rtol=0, atol=5e-4)
+        assert abs(planner.min_distance - on_cpu.min_distance) <= 1e-4
+        v, w, th = action[0, 0], action[1, 0], state[2, 0]
+        state = state + planner.dt * np.array([[v * np.cos(th)], [v * np.sin(th)], [w]])
 
 
 @pytest.mark.gpu

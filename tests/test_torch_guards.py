@@ -46,7 +46,10 @@ def test_port_and_chip_smoke_run_without_jax_in_the_process():
             + "try:\n    runpy.run_path('chip_smoke.py', run_name='__main__')\n"
             + "except SystemExit as e:\n    assert e.code in (0, None), e.code\n"
             + "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'neupan_tpu')]\n"
-            + "assert not bad, bad\nprint('clean', len(sys.modules))\n")
+            + "assert not bad, bad\n"
+            # pyyaml is needed by NeuPan.init_from_yaml alone: nothing that
+            # chip_smoke.py imports may import it at module level
+            + "assert 'yaml' not in sys.modules\nprint('clean', len(sys.modules))\n")
     res = _run(["-c", code])
     assert res.returncode == 0, res.stderr
     assert "clean" in res.stdout

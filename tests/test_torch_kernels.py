@@ -1,4 +1,4 @@
-"""The port's four kernels: plain versions vs the JAX Pallas kernels.
+"""The port's six kernels: plain versions vs the JAX Pallas kernels.
 
 On the CPU every wrapper runs its plain PyTorch version; these tests hold
 that version against the Pallas kernel it replaces, run in interpret mode
@@ -6,15 +6,22 @@ as tests/test_pallas.py runs it. The CUDA kernels are held against their
 plain versions in tests/test_torch_gpu.py, on a card.
 """
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from neupan_tpu.models import obs_point_net as jnet
 from neupan_tpu.ops.pallas.admm import admm_iterate as j_admm
+from neupan_tpu.ops.pallas.mlp import dune_mlp_pallas as j_mlp
 from neupan_tpu.ops.pallas.polish import box_candidate as j_box
 from neupan_tpu.ops.pallas.select import select_topk_flow_pallas as j_select
+from neupan_tpu.ops.pallas.select import select_topk_pallas as j_select_flowless
+from neupan_torch.models import ObsPointNet
 from neupan_torch.ops.kernels import admm as AD
+from neupan_torch.ops.kernels import mlp as ML
 from neupan_torch.ops.kernels import polish as PO
 from neupan_torch.ops.kernels import select as SE
 from neupan_torch.ops.kernels import sweep as SW
@@ -54,6 +61,101 @@ def test_select_masked_slots_repeat_the_reference_tie_rule():
                       *(jnp.asarray(a) for a in (V, G, h)), 4, interpret=True)
     np.testing.assert_array_equal(idx[0].numpy(), np.asarray(ij))
     assert (keys[0, :, :2] < 5e8).all() and (keys[0, :, 2:] == 1e9).all()
+
+
+def _flow_inputs(Tp1, P, n_valid, length=1.6, width=2.0, span=8.0, seed=0, B=2):
+    """A materialized point flow as tests/test_pallas.py draws it, batched."""
+    from neupan_torch.robot import Robot
+
+    robot = Robot.create(receding=Tp1 - 1, step_time=0.1, kinematics="diff", max_speed=[8, 1],
+                         max_acce=[8, 3], length=length, width=width)
+    rng = np.random.default_rng(seed)
+    pf = rng.uniform(-span, span, (B, Tp1, 2, P)).astype(np.float32)
+    mask = np.broadcast_to(np.arange(P) < n_valid, (B, P)).copy()
+    geom = [np.asarray(a, np.float32) for a in (robot.vertices, robot.G, robot.h)]
+    return pf, mask, geom
+
+
+@pytest.mark.parametrize("Tp1,P,n_valid,K,kw", [
+    (5, 256, 200, 6, {}),                                   # tests/test_pallas.py:33-59
+    (3, 128, 3, 5, dict(length=1.0, width=1.0, span=5.0, seed=1)),   # :62-79, masked slots
+])
+def test_select_topk_plain_matches_pallas_interpret(Tp1, P, n_valid, K, kw):
+    """The materialized-flow selection: identical indices and keys to the
+    Pallas kernel in interpret mode; masked slots carry the 1e9 key and the
+    lowest-index masked point."""
+    pf, mask, (V, G, h) = _flow_inputs(Tp1, P, n_valid, **kw)
+    keys, idx = SE.select_topk(*(torch.from_numpy(a) for a in (pf, mask, V, G, h)), K)
+    assert idx.dtype == torch.int32 and keys.shape == (pf.shape[0], Tp1, K)
+    for b in range(pf.shape[0]):
+        kj, ij = j_select_flowless(jnp.asarray(pf[b]), jnp.asarray(mask[b]), jnp.asarray(V),
+                                   jnp.asarray(G), jnp.asarray(h), K, interpret=True)
+        np.testing.assert_array_equal(idx[b].numpy(), np.asarray(ij))
+        np.testing.assert_allclose(keys[b].numpy(), np.asarray(kj), rtol=1e-6, atol=1e-6)
+    valid = keys.numpy() < 5e8
+    assert valid[:, :, :min(n_valid, K)].all() and not valid[:, :, n_valid:].any()
+    assert (np.diff(keys.numpy(), axis=-1) >= 0).all()
+
+
+def test_both_selections_pick_the_same_points_from_the_same_frames():
+    """select_topk on the flow that select_topk_flow builds in registers."""
+    pts, vels, mask, R, trans, dt, geom = select_inputs()
+    t = [torch.from_numpy(a) for a in (pts, vels, mask, R, trans)]
+    geo = [torch.from_numpy(a) for a in geom]
+    keys_f, idx_f = SE.select_topk_flow(*t, dt, *geo, 6)
+    tf = SE.flow_tables(t[3], t[4], dt, *geo)[0]
+    flow = torch.stack(SE.flow_from_tables(t[0], t[1], tf), dim=2).contiguous()
+    keys, idx = SE.select_topk(flow, t[2], *geo, 6)
+    assert torch.equal(idx, idx_f) and torch.equal(keys, keys_f)
+
+
+CKPTS = ["diff_robot_default", "acker_robot_default", "polygon_robot"]
+
+
+@pytest.mark.parametrize("model", CKPTS)
+@pytest.mark.parametrize("N,tile", [(300, 128), (77, 64)])
+def test_mlp_plain_matches_pallas_interpret_and_the_jax_forward(model, N, tile):
+    """The three shipped checkpoints through from_jax_params, at N=300 and
+    the ragged N=77 of tests/test_pallas.py:12-30. rtol 1e-5, atol 1e-5:
+    float32 noise through three LayerNorms sits above atol 1e-6."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    params = jnet.load_checkpoint(os.path.join(root, "examples/model", model, "model.npz"))
+    enc = ObsPointNet.from_jax_params({k: np.asarray(v) for k, v in params.items()}, "cpu")
+    pts = np.random.default_rng(N).uniform(-5, 5, (N, 2)).astype(np.float32)
+    n0 = ML.dune_mlp.launches
+    with torch.no_grad():
+        out = ML.dune_mlp(enc, torch.from_numpy(pts))
+        mod = enc(torch.from_numpy(pts))
+    assert ML.dune_mlp.launches == n0 and out.shape == (N, 4)
+    np.testing.assert_allclose(out.numpy(), np.asarray(j_mlp(params, jnp.asarray(pts), tile=tile,
+                                                             interpret=True)),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jnet.forward(params, jnp.asarray(pts))),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(out.numpy(), mod.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_mlp_packed_weights_follow_the_module():
+    """Packed once and kept; repacked after an update in place, after new
+    parameters and for another head width; leading axes are kept."""
+    enc = ObsPointNet.seeded(2, 5, seed=3, device="cpu")
+    packed = ML.pack_weights(enc)
+    assert packed.shape == (ML.PACKED_SIZE,) and ML.pack_weights(enc) is packed
+    pts = torch.from_numpy(np.random.default_rng(0).uniform(-4, 4, (3, 7, 2)).astype(np.float32))
+    with torch.no_grad():
+        out = ML.dune_mlp(enc, pts)
+        assert out.shape == (3, 7, 5)
+        torch.testing.assert_close(out, enc(pts), rtol=1e-5, atol=1e-5)
+        enc.MLP[13].bias.add_(1.0)
+        assert ML.pack_weights(enc) is not packed
+        torch.testing.assert_close(ML.dune_mlp(enc, pts), enc(pts), rtol=1e-5, atol=1e-5)
+    enc.load_state_dict(ObsPointNet.seeded(2, 5, seed=4, device="cpu").state_dict())
+    with torch.no_grad():
+        torch.testing.assert_close(ML.dune_mlp(enc, pts), enc(pts), rtol=1e-5, atol=1e-5)
+    # gradients reach the points through the plain version on the CPU
+    p = pts.clone().requires_grad_(True)
+    ML.dune_mlp(enc, p).sum().backward()
+    assert p.grad is not None and bool(p.grad.abs().sum() > 0)
 
 
 @pytest.mark.parametrize("B,n", [(4, 30), (130, 18), (7, 33)])
@@ -119,11 +221,39 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
                             torch.from_numpy(mask).float(),
                             *(torch.from_numpy(a) for a in (R, trans)), dt,
                             *(torch.from_numpy(a) for a in (V, G, h)), 4)
+    pf, fmask, geom = _flow_inputs(3, 16, 16, B=1)
+    flow, fmask, *geo = (torch.from_numpy(a) for a in (pf, fmask, *geom))
+    with pytest.raises(ValueError, match="k must be"):
+        SE.select_topk(flow, fmask, *geo, 17)
+    with pytest.raises(ValueError, match="contiguous"):
+        SE.select_topk(flow.transpose(2, 3).contiguous().transpose(2, 3), fmask, *geo, 4)
+    with pytest.raises(ValueError, match="point_flow must be"):
+        SE.select_topk(flow[0], fmask, *geo, 4)
+    with pytest.raises(ValueError, match="unsupported device"):
+        SE.select_topk(flow.to("meta"), fmask.to("meta"), *(g.to("meta") for g in geo), 4)
+    enc = ObsPointNet.seeded(2, 4, device="cpu")
+    with pytest.raises(ValueError, match=r"\(\.\.\., 2\)"):
+        ML.dune_mlp(enc, torch.zeros(5, 3))
+    with pytest.raises(TypeError):
+        ML.dune_mlp(enc, torch.zeros(5, 2, dtype=torch.float64))
+    with pytest.raises(ValueError, match="contiguous"):
+        ML.dune_mlp(enc, torch.zeros(2, 5).t())
+    with pytest.raises(ValueError, match="E <= 8"):
+        ML.dune_mlp(ObsPointNet.seeded(2, 9, device="cpu"), torch.zeros(5, 2))
+    with pytest.raises(ValueError, match="written for 2 -> 32"):
+        ML.dune_mlp(ObsPointNet(2, 4, hidden_dim=16), torch.zeros(5, 2))
+    with pytest.raises(TypeError, match="ObsPointNet"):
+        ML.dune_mlp(torch.nn.Linear(2, 4), torch.zeros(5, 2))
 
 
 def test_cpu_calls_run_the_plain_version_and_count_no_launch():
-    wrappers = (SE.select_topk_flow, SW.sweep_spd_inverse, AD.admm_iterate, PO.box_candidate)
+    wrappers = (SE.select_topk_flow, SE.select_topk, ML.dune_mlp, SW.sweep_spd_inverse,
+                AD.admm_iterate, PO.box_candidate)
     before = [w.launches for w in wrappers]
+    pf, fmask, geom = _flow_inputs(3, 32, 20, B=1)
+    args = [torch.from_numpy(a) for a in (pf, fmask, *geom)]
+    for o, p in zip(SE.select_topk(*args, 4), SE.select_topk_plain(*args, 4)):
+        assert torch.equal(o, p)
     M = t32(sweep_inputs(3, 12))
     torch.testing.assert_close(SW.sweep_spd_inverse(M), SW.sweep_spd_inverse_plain(M),
                                rtol=0, atol=0)

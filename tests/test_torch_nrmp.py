@@ -84,3 +84,38 @@ def test_unpack_and_coefficients_from_dune_match_jax():
                                              jnp.asarray(h), jnp.asarray(has_points[b]))
         np.testing.assert_allclose(fa[b].numpy(), np.asarray(jfa), rtol=0, atol=1e-6)
         np.testing.assert_allclose(fb[b].numpy(), np.asarray(jfb), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("kin", ["diff", "acker"])
+def test_no_obstacle_problem_matches_jax(kin):
+    """K=0: no d variables, no obstacle rows, no soft vector; the layout,
+    the QP, the condensation basis and the unpacking against the JAX package."""
+    kw = dict(T=T, K=0, kinematics=kin, speed_bound=(8.0, 1.0), acce_bound=(0.8, 0.3))
+    spec, jspec = tn.NRMPSpec(**kw), jn.NRMPSpec(**kw)
+    assert spec.no_obs and (spec.n, spec.m) == (jspec.n, jspec.m) == (5 * T + 3, 7 * T + 1)
+    np.testing.assert_array_equal(tn._static_template(spec).numpy(), jn._static_template(jspec))
+    x = _inputs(1)
+    tt = {k: torch.from_numpy(v) for k, v in x.items()}
+    qp = tn.build_qp(spec, _adjust(tn), tt["nom_s"], tt["nom_u"], tt["ref_s"], tt["ref_us"],
+                     tt["A"], tt["Bm"], tt["C"])
+    Z, xp = tn.condensation(spec, tt["A"], tt["Bm"], tt["C"], tt["nom_s"][:, :, 0])
+    assert qp.soft is None and Z.shape == (B, spec.n, 2 * T)
+    sol = np.random.default_rng(4).normal(size=(B, spec.n)).astype(np.float32)
+    s, u, d = tn.unpack_solution(spec, torch.from_numpy(sol))
+    assert d is None
+    for b in range(B):
+        j = {k: jnp.asarray(v[b]) for k, v in x.items()}
+        jqp = jn.build_qp(jspec, _adjust(jn), j["nom_s"], j["nom_u"], j["ref_s"], j["ref_us"],
+                          j["A"], j["Bm"], j["C"])
+        assert jqp.soft is None
+        for name in ("P_diag", "q", "A", "l", "u"):
+            np.testing.assert_allclose(getattr(qp, name)[b].numpy(),
+                                       np.asarray(getattr(jqp, name)), rtol=0, atol=1e-6,
+                                       err_msg=name)
+        jZ, jxp = jn.condensation(jspec, j["A"], j["Bm"], j["C"], j["nom_s"][:, 0])
+        np.testing.assert_allclose(Z[b].numpy(), np.asarray(jZ), rtol=0, atol=1e-6)
+        np.testing.assert_allclose(xp[b].numpy(), np.asarray(jxp), rtol=0, atol=1e-6)
+        js, ju, jd = jn.unpack_solution(jspec, jnp.asarray(sol[b]))
+        assert jd is None
+        np.testing.assert_array_equal(s[b].numpy(), np.asarray(js))
+        np.testing.assert_array_equal(u[b].numpy(), np.asarray(ju))
