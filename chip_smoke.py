@@ -7,12 +7,17 @@
    in this checkout (one nvcc call, one library).
 2. Kernel phase: each of the six hand-written kernels runs at the shapes
    its path gives it with B=512 on seeded inputs, is held against its
-   plain PyTorch version on the same inputs, and is timed with CUDA events
+   plain PyTorch version on the same inputs, and is timed on the card
    beside its plain version, its bound and, where one PyTorch call computes
-   the same function, that call. The two selection kernels must return
-   identical indices on the same frames; the fused MLP is also held
+   the same function, that call: the kernels by CUDA events around a CUDA
+   graph of 50 launches (``graph_ms``: the wrappers' Python would otherwise
+   be what is timed), the fused MLP and the PyTorch routes launch by
+   launch. The two selection kernels must return identical indices on the
+   same frames; the fused MLP is also held
    against a float64 evaluation of the same weights, with the diff
-   checkpoint and, at full width, with the acker one.
+   checkpoint and, at full width, with the acker one. admm and polish are
+   also timed at B=1, the facade's batch. Each kernel's registers and
+   spills come from nvcc's resource report (``libneupan.log``).
 3. Paths, each on the flagship batch (diff robot, T=10, P=2048, K=10,
    B=512, the deployed diff checkpoint) with every launch counter set to 0
    just before and read just after; each kernel must have been launched
@@ -81,6 +86,10 @@ REPLACES = {
     "select_topk": "neupan_tpu/ops/pallas/select.py:120",
     "mlp": "neupan_tpu/ops/pallas/mlp.py:54",
 }
+# the kernel entry points (ptxas names) behind each wrapper
+ENTRIES = {"select": ("select_flow_kernel",), "select_topk": ("select_kernel",),
+           "mlp": ("dune_mlp_kernel",), "sweep": ("sweep_kernel",),
+           "admm": ("admm_regs_kernel", "admm_smem_kernel"), "polish": ("box_candidate_kernel",)}
 FACADE_TICKS, NO_OBS_TICKS = 5, 3
 
 
@@ -109,10 +118,65 @@ def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(torch, fn, reps: int = 50, replays: int = 3) -> float:
+    """Mean device time of one call of ``fn``: ``reps`` calls captured in a
+    CUDA graph, replayed ``replays`` times between CUDA events. A wrapper
+    costs tens of microseconds of Python per call, more than a small kernel
+    takes on the card, so timing launches issued one by one (``time_ms``)
+    measures the host; the graph replays only the kernels."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
+
+
 def bound(ops: float, nbytes: float):
     """Least time the card could take: (ms, what bounds it)."""
     t_ops, t_bytes = ops / PEAK_FLOPS, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
+
+
+def ptxas_usage(log_text: str) -> dict:
+    """Registers and spilled bytes (stores + loads) of each kernel entry in
+    nvcc's ``-Xptxas -v`` report, by name (``name<N>`` for a template
+    instance)."""
+    import re
+
+    usage, current = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if m:
+            n = re.search(r"([a-z_]+_kernel)(?:ILi(\d+)E)?", m.group(1))
+            current = None if n is None else n.group(1) + (f"<{n.group(2)}>" if n.group(2) else "")
+            if current is not None:
+                usage.setdefault(current, {})
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            usage[current]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage[current]["registers"] = int(m.group(1))
+    return usage
 
 
 # -- work counts from the shapes (float operations, compares included) -------
@@ -223,7 +287,7 @@ def kernel_phase(torch, dev):
     tab_args = (pts, vels, mask, *SE.flow_tables(R_all, trans, robot.dt, verts, G, h), K)
     res["select"] = dict(
         shape=f"B={B} T+1={T + 1} P={P} K={K}", max_abs_err=err,
-        ms=time_ms(torch, lambda: SE.select_from_tables(*tab_args), 50),
+        ms=graph_ms(torch, lambda: SE.select_from_tables(*tab_args)),
         plain_ms=time_ms(torch, lambda: SE.select_from_tables_plain(*tab_args), 5),
         library_ms=None, bound=bound(ops, nbytes))
 
@@ -239,7 +303,7 @@ def kernel_phase(torch, dev):
     flow_args = (flow, mask, *tab_args[4:])
     res["select_topk"] = dict(
         shape=f"B={B} T+1={T + 1} P={P} K={K}", max_abs_err=float((keys5 - keys5_p).abs().max()),
-        ms=time_ms(torch, lambda: SE.select_topk_from_tables(*flow_args), 50),
+        ms=graph_ms(torch, lambda: SE.select_topk_from_tables(*flow_args)),
         plain_ms=time_ms(torch, lambda: SE.select_topk_from_tables_plain(*flow_args), 5),
         library_ms=None, bound=bound(ops, nbytes))
 
@@ -322,12 +386,12 @@ def kernel_phase(torch, dev):
             ops, nbytes = sweep_work(B, n)
             res["sweep"] = dict(
                 shape=f"B={B} n={n}",
-                ms=time_ms(torch, lambda: SW.sweep_spd_inverse(Mt), 50),
+                ms=graph_ms(torch, lambda: SW.sweep_spd_inverse(Mt)),
                 plain_ms=time_ms(torch, lambda: SW.sweep_spd_inverse_plain(Mt), 5),
                 library_ms=time_ms(torch, lambda: torch.linalg.inv(Mt), 20),
                 bound=bound(ops, nbytes))
         res.setdefault("sweep_by_n", {})[n] = dict(
-            ms=time_ms(torch, lambda: SW.sweep_spd_inverse(Mt), 20),
+            ms=graph_ms(torch, lambda: SW.sweep_spd_inverse(Mt), 20),
             library_ms=time_ms(torch, lambda: torch.linalg.inv(Mt), 10))
     res["sweep"]["max_abs_err"] = sweep_err
 
@@ -358,11 +422,13 @@ def kernel_phase(torch, dev):
     check(bool(((out[2] - outp[2]).abs() <= 1e-3 + 1e-2 * outp[2].abs()).all()),
           f"admm: y differs from the plain version by {e_y}")
     ops, nbytes = admm_work(B, k, m, iters)
+    one = [a[:1] for a in ad_args]
     res["admm"] = dict(
         shape=f"B={B} k={k} m={m} iters={iters}", max_abs_err=max(e_wz, e_y),
-        ms=time_ms(torch, lambda: AD.admm_iterate(*ad_args, **kw), 20),
+        ms=graph_ms(torch, lambda: AD.admm_iterate(*ad_args, **kw)),
+        ms_B1=graph_ms(torch, lambda: AD.admm_iterate(*one, **kw)),
         plain_ms=time_ms(torch, lambda: AD.admm_iterate_plain(*ad_args, **kw), 3),
-        library_ms=None, bound=bound(ops, nbytes))
+        library_ms=None, bound=bound(ops, nbytes), bound_B1=bound(*admm_work(1, k, m, iters)))
 
     # polish: k=30, na=18, refine=7
     na, refine = 18, 7
@@ -383,9 +449,12 @@ def kernel_phase(torch, dev):
               for o, p in zip(out, outp))
     check(rel < 2e-4, f"polish: relative error {rel} against the plain version")
     ops, nbytes = polish_work(B, k, na, refine)
+    one = [a[:1] for a in po_args]
     res["polish"] = dict(
         shape=f"B={B} k={k} na={na} refine={refine}", max_abs_err=e,
-        ms=time_ms(torch, lambda: PO.box_candidate(*po_args, refine=refine), 50),
+        ms=graph_ms(torch, lambda: PO.box_candidate(*po_args, refine=refine)),
+        ms_B1=graph_ms(torch, lambda: PO.box_candidate(*one, refine=refine)),
+        bound_B1=bound(*polish_work(1, k, na, refine)),
         plain_ms=time_ms(torch, lambda: PO.box_candidate_plain(*po_args, refine=refine), 5),
         library_ms=None, bound=bound(ops, nbytes))
     return res
@@ -661,8 +730,7 @@ def profile_step(torch, spec, encoder, geom, adjust, data):
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    ours = ("select_flow_kernel", "select_kernel", "dune_mlp_kernel", "sweep_kernel",
-            "admm_kernel", "box_candidate_kernel")
+    ours = tuple(e for names in ENTRIES.values() for e in names)
     ours_us = sum(t for n, t in by_name.items() if any(k in n for k in ours))
     lines = [f"device kernels over {STEPS} steps, by name (us, share of busy time)"]
     lines += [f"{t:12.1f} {t / busy_us:7.2%}  {name[:140]}"
@@ -696,8 +764,8 @@ def main() -> None:
     lib = _build.build()
     build_s = time.perf_counter() - t0
     with open(lib.with_suffix(".log")) as fh:
-        usage = [ln.strip() for ln in fh if "entry function" in ln or "registers" in ln]
-    print("build: " + "\n  ".join(usage), file=sys.stderr)
+        usage = ptxas_usage(fh.read())
+    print(f"build: {json.dumps(usage)}", file=sys.stderr)
 
     kern = kernel_phase(torch, dev)
     by_path, report = {}, {}
@@ -717,7 +785,10 @@ def main() -> None:
             "replaces": REPLACES[name], "launches": sum(launches.values()),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-            "library_ms": r["library_ms"], "shape": r["shape"], "launches_by_path": launches})
+            "library_ms": r["library_ms"], "shape": r["shape"], "launches_by_path": launches,
+            "ptxas": {e: u for e, u in usage.items() if e.split("<")[0] in ENTRIES[name]}})
+        if "ms_B1" in r:
+            entries[-1].update(ms_B1=r["ms_B1"], bound_ms_B1=r["bound_B1"][0])
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"build_s": build_s, "sweep_by_n": kern["sweep_by_n"],
                       "mlp_by_n": kern["mlp_by_n"], "mlp_acker": kern["mlp_acker"], **report}))

@@ -23,3 +23,34 @@ __device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
 }
+
+namespace neupan_detail {
+template <int H, int N>
+__device__ __forceinline__ void reduce_scatter_level(float (&p)[N], int lane) {
+  if constexpr (H >= 1) {
+    constexpr int off = 32 * H / N;
+    const bool up = (lane & off) != 0;
+#pragma unroll
+    for (int i = 0; i < H; ++i) {
+      const float send = up ? p[i] : p[i + H];
+      const float keep = up ? p[i + H] : p[i];
+      p[i] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+    }
+    reduce_scatter_level<H / 2, N>(p, lane);
+  }
+}
+}  // namespace neupan_detail
+
+// Sums of N values (N a power of two, at most 32) over the 32 lanes of a
+// warp: lane l gets the total of value l / (32 / N). Each level sends half
+// of what a lane still holds to its partner and keeps the other half, so N
+// sums cost N - 1 + log2(32 / N) shuffles (31 for N = 32) instead of 5 N.
+template <int N>
+__device__ __forceinline__ float warp_reduce_scatter(float (&p)[N], int lane) {
+  static_assert(N >= 1 && N <= 32 && (N & (N - 1)) == 0, "N must be a power of two <= 32");
+  neupan_detail::reduce_scatter_level<N / 2, N>(p, lane);
+  float v = p[0];
+#pragma unroll
+  for (int off = 16 / N; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}

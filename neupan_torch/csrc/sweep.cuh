@@ -1,12 +1,13 @@
 // Symmetric sweep-operator inverse of an SPD matrix held in shared memory.
 //
-// Device function shared by the sweep kernel (sweep.cu) and the polish
-// kernel (polish.cu). Sweeping pivot j of a symmetric matrix keeps it
-// symmetric (b_jj = -1/d, b_jk = a_jk/d, b_ik = a_ik - a_ij a_jk/d), so
-// column j is read as row j and no transposed copy is needed; after all n
-// pivots the buffer holds -A^{-1}, which the last pass negates. No
-// pivoting: the callers Jacobi-scale and ridge the input, so every pivot
-// is positive and bounded away from zero.
+// Device function of the sweep kernel (sweep.cu); the polish kernel
+// (polish.cu) runs the same arithmetic on register-held elements. Sweeping
+// pivot j of a symmetric matrix keeps it symmetric (b_jj = -1/d,
+// b_jk = a_jk/d, b_ik = a_ik - a_ij a_jk/d), so column j is read as row j
+// and no transposed copy is needed; after all n pivots the buffer holds
+// -A^{-1}, which the last pass negates. No pivoting: the callers
+// Jacobi-scale and ridge the input, so every pivot is positive and bounded
+// away from zero.
 //
 // The arithmetic is written with round-to-nearest intrinsics (no FMA
 // contraction) and a correctly rounded reciprocal, so the result equals

@@ -10,18 +10,41 @@ What it computes, per scenario, ``iters`` times:
     the one-sided penalty min(l + (v - l) rho / (rho + soft) if v < l, u);
     y = y + rho (z_mix - z_new).
 
-Bound on the H100: operations. One iteration is ~4 m k + 2 k^2 + 15 m
-float operations per scenario (k=30, m=148: ~22 kFLOP), and the operator
-(m k + k^2 floats, 21 KB) is reused by every iteration: at B=512 and
-120 iterations that is ~1.3 GFLOP against ~13 MB of input.
+Bound on the H100: the dependent chain of each iteration, not bytes or
+operations. One iteration is ~4 m k + 2 k^2 + 15 m float operations per
+scenario (k=30, m=148: ~22 kFLOP, ~0.3 ns of the card's float32 peak at
+B=1), and the operator (m k + k^2 floats, 21 KB) is read once for all
+iterations. What an iteration waits on is its chain: phase A (As' t),
+a barrier, phase B (Minv rhs), a barrier, phase C (As w~ and the prox), so
+~5 dependent steps; at B=512 also the issue slots of ~4 blocks per SM.
 
-Design: one block per scenario (128 threads). As, Minv and the bounds are
-read into shared memory once and w, z, y stay there across all
-iterations; only the final iterate is written. As' t is reduced by one
-warp per output (lanes stride over m, warp shuffle), Minv rhs and As w~ by
-one thread per output. Four barriers per iteration order the phases. The
-wrapper raises for shapes whose operator does not fit in a block's shared
-memory (the TPU package's ``admm_kernel_fits`` plays that role there).
+Design: one block per scenario, rows of As in tiles of 32 (one warp per
+tile), columns in chunks of 32 (lane c: column c).
+
+* ``admm_regs_kernel`` (k <= 32, m <= 224; the main path's k=30, m=148 and
+  the K=0 step's k=20, m=38): 32 x ceil(m/32) threads. Each warp holds its
+  tile of As by column in registers (lane c: As[., c]), the eight Minv rows
+  of its output group, and in lane r the state of row r (z, y, l, u, rho);
+  shared memory holds t, the partials, w~ and the tile by row (stride 33,
+  so lane r reads row r without a bank conflict). A: lane c sums its column
+  against t (float4 broadcasts, four partial sums of eight) into one
+  partial per warp; B: warp g sums the partials into rhs and computes
+  w~[8g..8g+7] with one reduce-scatter (9 shuffles); C: lane r sums row r
+  against w~ (float4 broadcasts, four partial sums), runs the prox and dual
+  update of row r and writes t. Two ``__syncthreads`` per iteration (after
+  A and after B), no shuffle in A or C. Holding the row copy in registers
+  too was faster at B=1 but took ~100 registers, so B=512 no longer fit
+  one wave and ran slower; the main path's B=512 decided.
+* ``admm_smem_kernel<NC>`` (every other admitted shape, e.g. T=30's k=90,
+  m=451): the same phases and barriers with As, Minv and the row state in
+  shared memory (column reads conflict-free, rows as broadcasts), up to 8
+  warps; NC = 1, 2, 3 column chunks unrolled, 0 a runtime count for k > 96.
+
+No tensor cores: every product is a matrix times one vector per scenario
+and iteration, and the port keeps float32 throughout (TF32 off: reduced
+precision broke the accuracy contract). ``smem_bytes`` is the admission
+rule the wrapper has always applied; every shape it admits fits one of the
+two instances (the shared-memory one needs no more than it, with one warp).
 """
 
 from __future__ import annotations
@@ -32,7 +55,8 @@ from neupan_torch.ops.kernels import _build
 
 
 def smem_bytes(k: int, m: int) -> int:
-    """Shared memory the kernel needs at (k, m); mirrors csrc/admm.cu."""
+    """The admission rule: the wrapper takes (k, m) while this fits one
+    block's shared memory. The kernel needs no more than this."""
     return 4 * (m * k + k * k + 4 * k + 9 * m)
 
 

@@ -3,7 +3,8 @@
 Replaces the TPU kernel ``neupan_tpu/ops/pallas/sweep.py:sweep_spd_inverse``
 (``_sweep_body``; ``_sweep_kernel_rolled`` for n > 64) with
 ``neupan_torch/csrc/sweep.cu`` (the pivot loop is the device function in
-``csrc/sweep.cuh``, which the polish kernel reuses).
+``csrc/sweep.cuh``; the polish kernel runs the same arithmetic in its own
+register layout).
 
 What it computes: the inverse of a batch of Jacobi-scaled, ridged SPD
 matrices, n <= 96, by n pivot steps without pivoting. Sweeping pivot j

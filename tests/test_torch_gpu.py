@@ -239,22 +239,44 @@ def test_sweep_kernel_matches_plain(cuda, B, n):
 
 
 @pytest.mark.gpu
-def test_admm_kernel_matches_plain(cuda):
-    args = [t32(a, cuda) for a in admm_inputs()]
+@pytest.mark.parametrize("B,k,m", [(1, 30, 148), (16, 30, 148), (513, 30, 148),  # main path
+                                   (4, 20, 38),                               # the K=0 step
+                                   (2, 90, 451)])                             # T=30
+def test_admm_kernel_matches_plain(cuda, B, k, m):
+    """Every instance of the kernel: registers (k <= 32, m <= 256) and shared
+    memory (T=30's operator, 212 KB); one scenario and more than one wave."""
+    args = [t32(a, cuda) for a in admm_inputs(B=B, m=m, k=k)]
+    n0 = AD.admm_iterate.launches
     out, ref = AD.admm_iterate(*args, **ADMM_KW), AD.admm_iterate_plain(*args, **ADMM_KW)
     torch.cuda.synchronize()
+    assert AD.admm_iterate.launches == n0 + 1
     torch.testing.assert_close(out[0], ref[0], rtol=0, atol=1e-4)
     torch.testing.assert_close(out[1], ref[1], rtol=0, atol=1e-4)
     torch.testing.assert_close(out[2], ref[2], rtol=1e-2, atol=1e-3)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B", [1, 9])
-def test_polish_kernel_matches_plain(cuda, B):
-    args = [t32(a, cuda) for a in polish_inputs(B=B)]
+@pytest.mark.parametrize("B,k,na,case", [(1, 30, 18, "random"), (9, 30, 18, "random"),
+                                         (513, 30, 18, "random"),   # main path, > one wave
+                                         (4, 20, 18, "random"),     # the K=0 step
+                                         (2, 90, 58, "random"),     # T=30
+                                         (3, 30, 18, "all fixed"), (3, 30, 18, "d zero")])
+def test_polish_kernel_matches_plain(cuda, B, k, na, case):
+    """"all fixed": every coordinate pinned (fix = 1, the TPU wrapper's
+    padded lanes), so Hm is the identity; "d zero": no active acc row, so
+    DAn = 0 and S = (1 + 1e-6) I."""
+    args = polish_inputs(B=B, k=k, na=na)
+    if case == "all fixed":
+        args[7] = np.ones_like(args[7])
+        args[6] = np.random.default_rng(1).normal(size=args[6].shape).astype(np.float32)
+    elif case == "d zero":
+        args[8], args[2], args[5] = (np.zeros_like(args[i]) for i in (8, 2, 5))
+    args = [t32(a, cuda) for a in args]
+    n0 = PO.box_candidate.launches
     out = PO.box_candidate(*args, refine=7)
     ref = PO.box_candidate_plain(*args, refine=7)
     torch.cuda.synchronize()
+    assert PO.box_candidate.launches == n0 + 1
     for o, r in zip(out, ref):
         assert float((o - r).abs().max() / r.abs().max().clamp(min=1e-9)) < 2e-4
 
