@@ -13,11 +13,17 @@
    graph of 50 launches (``graph_ms``: the wrappers' Python would otherwise
    be what is timed), the fused MLP and the PyTorch routes launch by
    launch. The two selection kernels must return identical indices on the
-   same frames; the fused MLP is also held
+   same frames, also at the facade's shape (B=1, P=100) and where 64
+   scenarios have fewer than K unmasked points and one has none (the
+   trailing slots repeat the lowest-index 1e9 point); the sweep is timed
+   as the QP calls it (``spd_inverse_scaled``, the scaling in the kernel)
+   and on pre-scaled input, each held to 3e-5 of its plain version at
+   n=30, 33 and 90; the fused MLP is also held
    against a float64 evaluation of the same weights, with the diff
-   checkpoint and, at full width, with the acker one. admm and polish are
-   also timed at B=1, the facade's batch. Each kernel's registers and
-   spills come from nvcc's resource report (``libneupan.log``).
+   checkpoint and, at full width, with the acker one. select, select_topk,
+   sweep, admm and polish are also timed at B=1, the facade's batch. Each
+   kernel's registers and spills come from nvcc's resource report
+   (``libneupan.log``).
 3. Paths, each on the flagship batch (diff robot, T=10, P=2048, K=10,
    B=512, the deployed diff checkpoint) with every launch counter set to 0
    just before and read just after; each kernel must have been launched
@@ -88,7 +94,7 @@ REPLACES = {
 }
 # the kernel entry points (ptxas names) behind each wrapper
 ENTRIES = {"select": ("select_flow_kernel",), "select_topk": ("select_kernel",),
-           "mlp": ("dune_mlp_kernel",), "sweep": ("sweep_kernel",),
+           "mlp": ("dune_mlp_kernel",), "sweep": ("sweep_regs_kernel", "sweep_tiled_kernel"),
            "admm": ("admm_regs_kernel", "admm_smem_kernel"), "polish": ("box_candidate_kernel",)}
 FACADE_TICKS, NO_OBS_TICKS = 5, 3
 
@@ -155,16 +161,17 @@ def bound(ops: float, nbytes: float):
 
 def ptxas_usage(log_text: str) -> dict:
     """Registers and spilled bytes (stores + loads) of each kernel entry in
-    nvcc's ``-Xptxas -v`` report, by name (``name<N>`` for a template
-    instance)."""
+    nvcc's ``-Xptxas -v`` report, by name (``name<N,M>`` for a template
+    instance, a bool argument as 0 or 1)."""
     import re
 
     usage, current = {}, None
     for line in log_text.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
         if m:
-            n = re.search(r"([a-z_]+_kernel)(?:ILi(\d+)E)?", m.group(1))
-            current = None if n is None else n.group(1) + (f"<{n.group(2)}>" if n.group(2) else "")
+            n = re.search(r"([a-z_]+_kernel)(I(?:L[ib]\d+E)+E)?", m.group(1))
+            args = re.findall(r"L[ib](\d+)E", n.group(2) or "") if n else []
+            current = None if n is None else n.group(1) + (f"<{','.join(args)}>" if args else "")
             if current is not None:
                 usage.setdefault(current, {})
             continue
@@ -203,7 +210,8 @@ def mlp_work(N, E, H=32):
 
 
 def sweep_work(B, n):
-    return B * n * (2 * n * n + n), 2 * B * n * n * 4
+    """The scaled sweep: the Jacobi scales, scaling and ridge, n pivots, the unscaling."""
+    return B * (n * (2 * n * n + n) + 4 * n + 5 * n * n), 2 * B * n * n * 4
 
 
 def admm_work(B, k, m, iters):
@@ -285,11 +293,39 @@ def kernel_phase(torch, dev):
     ops, nbytes = select_work(B, T + 1, P, verts.shape[1], G.shape[0], K)
     # the transform tables are built once, so the timed call is the kernel alone
     tab_args = (pts, vels, mask, *SE.flow_tables(R_all, trans, robot.dt, verts, G, h), K)
+    # the facade's shape: one scenario, P=100 (examples/corridor/diff), K=10
+    P1 = 100
+    tab1 = (pts[:1, :, :P1].contiguous(), vels[:1, :, :P1].contiguous(), mask[:1, :P1].contiguous(),
+            tab_args[3][:1].contiguous(), *tab_args[4:])
+    idx1, idx1_p = SE.select_from_tables(*tab1)[1], SE.select_from_tables_plain(*tab1)[1]
+    check(torch.equal(idx1, idx1_p), "select B=1: kernel indices differ from the plain version")
     res["select"] = dict(
         shape=f"B={B} T+1={T + 1} P={P} K={K}", max_abs_err=err,
         ms=graph_ms(torch, lambda: SE.select_from_tables(*tab_args)),
+        ms_B1=graph_ms(torch, lambda: SE.select_from_tables(*tab1)),
         plain_ms=time_ms(torch, lambda: SE.select_from_tables_plain(*tab_args), 5),
-        library_ms=None, bound=bound(ops, nbytes))
+        library_ms=None, bound=bound(ops, nbytes),
+        bound_B1=bound(*select_work(1, T + 1, P1, verts.shape[1], G.shape[0], K)))
+
+    # the refill rule: fewer than K unmasked points in 64 scenarios, none in one;
+    # the trailing slots repeat the lowest-index 1e9 point, earlier winners included
+    sparse = mask.clone()
+    sparse[:64] &= torch.arange(P, device=dev) % 409 == 7          # 5 candidates, some masked
+    sparse[64] = False
+    sp_args = (pts, vels, sparse, *tab_args[3:])
+    sp_flow = torch.stack(SE.flow_from_tables(pts, vels, tab_args[3]), dim=2).contiguous()
+    sp = {"select": SE.select_from_tables(*sp_args),
+          "select plain": SE.select_from_tables_plain(*sp_args),
+          "select_topk": SE.select_topk_from_tables(sp_flow, sparse, *tab_args[4:]),
+          "select_topk plain": SE.select_topk_from_tables_plain(sp_flow, sparse, *tab_args[4:])}
+    torch.cuda.synchronize()
+    for name, (k_, i_) in sp.items():
+        check(torch.equal(i_, sp["select plain"][1]) and torch.equal(k_, sp["select plain"][0]),
+              f"{name}: fewer than K unmasked points, indices or keys differ from the plain version")
+    check(bool((sp["select"][1][64] == 0).all()), "select: an all-masked frame must repeat point 0")
+    res["select_refill"] = dict(scenarios_fewer_than_K=64, all_masked=1,
+                                trailing_slots=int((sp["select"][0] == 1e9).sum()))
+    del sp, sp_flow
 
     # select_topk: the same frames as a materialized flow (B, T+1, 2, P), built in
     # the flow kernel's expression order, so both kernels must pick the same points
@@ -301,11 +337,17 @@ def kernel_phase(torch, dev):
     check(torch.equal(idx5, idx), "select_topk: indices differ from the flow kernel's")
     ops, nbytes = select_topk_work(B, T + 1, P, verts.shape[1], G.shape[0], K)
     flow_args = (flow, mask, *tab_args[4:])
+    flow1 = flow[:1, :, :, :P1].contiguous()
+    flow1_args = (flow1, mask[:1, :P1].contiguous(), *tab_args[4:])
+    check(torch.equal(SE.select_topk_from_tables(*flow1_args)[1], idx1),
+          "select_topk B=1: indices differ from the flow kernel's")
     res["select_topk"] = dict(
         shape=f"B={B} T+1={T + 1} P={P} K={K}", max_abs_err=float((keys5 - keys5_p).abs().max()),
         ms=graph_ms(torch, lambda: SE.select_topk_from_tables(*flow_args)),
+        ms_B1=graph_ms(torch, lambda: SE.select_topk_from_tables(*flow1_args)),
         plain_ms=time_ms(torch, lambda: SE.select_topk_from_tables_plain(*flow_args), 5),
-        library_ms=None, bound=bound(ops, nbytes))
+        library_ms=None, bound=bound(ops, nbytes),
+        bound_B1=bound(*select_topk_work(1, T + 1, P1, verts.shape[1], G.shape[0], K)))
 
     # mlp: the deployed diff encoder on every point of that flow (what
     # dune_select="mlp" gives it) and on the K winners per frame (what the
@@ -369,30 +411,43 @@ def kernel_phase(torch, dev):
                                 err_vs_f64=e64)
     del all_pts, win, flow
 
-    # sweep: the Jacobi-scaled, ridged SPD matrices at n=30, 33 (main path), 90
+    # sweep: what the QP launches, spd_inverse_scaled (the Jacobi scaling, ridge and
+    # unscaling in the kernel), at n=30, 33 (main path) and 90 (T=30), against the
+    # plain version of the fused call on SPD matrices whose diagonal spans four
+    # decades; and the unscaled kernel on the same matrices scaled beforehand
     sweep_err = 0.0
+    res["sweep_by_n"] = {}
     for n in (30, 33, 90):
         Q = rng.normal(size=(B, n, n))
-        M = Q @ np.swapaxes(Q, 1, 2) / n + np.eye(n)[None]
+        sc = 10.0 ** rng.uniform(-2, 2, (B, n, 1))
+        M = sc * (Q @ np.swapaxes(Q, 1, 2) / n + np.eye(n)[None]) * np.swapaxes(sc, 1, 2)
+        M = (M + np.swapaxes(M, 1, 2)) / 2
         dj = 1 / np.sqrt(np.einsum("bii->bi", M))
         Mt = f(M * dj[:, :, None] * dj[:, None, :] + 1e-7 * np.eye(n)[None])
-        X, Xp = SW.sweep_spd_inverse(Mt), SW.sweep_spd_inverse_plain(Mt)
+        M = f(M)
+        X, Xp = SW.spd_inverse_scaled(M), SW.spd_inverse_scaled(M, SW.sweep_spd_inverse_plain)
+        U, Up = SW.sweep_spd_inverse(Mt), SW.sweep_spd_inverse_plain(Mt)
         torch.cuda.synchronize()
-        e = float((X - Xp).abs().max())
-        rel = e / float(Xp.abs().max())
-        check(rel < 3e-5, f"sweep n={n}: relative error {rel} against the plain version")
-        sweep_err = max(sweep_err, e)
+        # |X_rc| <= sqrt(X_rr X_cc) for an SPD inverse: the scale-free error
+        d = torch.sqrt(torch.diagonal(Xp, dim1=1, dim2=2).abs())
+        rel = float(((X - Xp).abs() / (d[:, :, None] * d[:, None, :])).max())
+        rel_u = float((U - Up).abs().max() / Up.abs().max())
+        check(rel < 3e-5 and rel_u < 3e-5,
+              f"sweep n={n}: relative error {rel} (scaled), {rel_u} (unscaled) against the plain version")
+        sweep_err = max(sweep_err, float((X - Xp).abs().max()), float((U - Up).abs().max()))
+        ops, nbytes = sweep_work(B, n)
+        r = dict(rel_err=rel, rel_err_unscaled=rel_u, ms=graph_ms(torch, lambda: SW.spd_inverse_scaled(M), 20),
+                 ms_unscaled=graph_ms(torch, lambda: SW.sweep_spd_inverse(Mt), 20),
+                 library_ms=time_ms(torch, lambda: torch.linalg.inv(M), 10), bound_ms=bound(ops, nbytes)[0])
         if n == 30:
-            ops, nbytes = sweep_work(B, n)
+            one = M[:1].contiguous()
+            r.update(ms_B1=graph_ms(torch, lambda: SW.spd_inverse_scaled(one)),
+                     ms_unscaled_B1=graph_ms(torch, lambda: SW.sweep_spd_inverse(Mt[:1].contiguous())))
             res["sweep"] = dict(
-                shape=f"B={B} n={n}",
-                ms=graph_ms(torch, lambda: SW.sweep_spd_inverse(Mt)),
-                plain_ms=time_ms(torch, lambda: SW.sweep_spd_inverse_plain(Mt), 5),
-                library_ms=time_ms(torch, lambda: torch.linalg.inv(Mt), 20),
-                bound=bound(ops, nbytes))
-        res.setdefault("sweep_by_n", {})[n] = dict(
-            ms=graph_ms(torch, lambda: SW.sweep_spd_inverse(Mt), 20),
-            library_ms=time_ms(torch, lambda: torch.linalg.inv(Mt), 10))
+                shape=f"B={B} n={n}", ms=r["ms"], ms_B1=r["ms_B1"],
+                plain_ms=time_ms(torch, lambda: SW.spd_inverse_scaled(M, SW.sweep_spd_inverse_plain), 5),
+                library_ms=r["library_ms"], bound=bound(ops, nbytes), bound_B1=bound(*sweep_work(1, n)))
+        res["sweep_by_n"][n] = r
     res["sweep"]["max_abs_err"] = sweep_err
 
     # admm: k=30, m=148, 120 iterations (the first PAN iteration's phase)
@@ -791,6 +846,7 @@ def main() -> None:
             entries[-1].update(ms_B1=r["ms_B1"], bound_ms_B1=r["bound_B1"][0])
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"build_s": build_s, "sweep_by_n": kern["sweep_by_n"],
+                      "select_refill": kern["select_refill"],
                       "mlp_by_n": kern["mlp_by_n"], "mlp_acker": kern["mlp_acker"], **report}))
     print(card_name_and_power())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

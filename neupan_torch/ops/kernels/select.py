@@ -22,19 +22,39 @@ K=10 compares in the extraction), against 17 bytes of input per point that
 every frame shares: at B=512, P=2048, T+1=11 that is ~1 GFLOP against
 ~18 MB. ``select_topk``: bytes, narrowly. It reads 8 bytes per point and
 frame (~92 MB at the same shape, 0.028 ms at the card's memory rate)
-against ~80 operations (~0.9 GFLOP, 0.014 ms).
+against ~80 operations (~0.9 GFLOP, 0.014 ms). The key's products and sums
+stay unfused (an FMA could flip a near-tie), so the card issues them at
+half its FMA rate: the flow kernel's floor is about twice its bound.
 
-Design: one block per (scenario, frame), B*(T+1) = 5,632 blocks at B=512.
-Threads stride over P and keep the P keys in shared memory (8 KB); the
-flow kernel builds the frame's coordinates in registers, so they never
-reach device memory, and the materialized kernel streams its frame's two
-rows once, coalesced. The K extraction rounds are block-wide (key, index)
-argmin reductions over shared memory, one warp shuffle tree and one
-barrier pair per round. The key arithmetic uses round-to-nearest
-intrinsics in the reference's expression order, so the kernels and the
-plain versions below agree bit for bit and select identical indices. The
-transform table and the per-edge reciprocals are computed here in
-correctly rounded float32, as the TPU wrappers do.
+Design (``csrc/select.cu``, ``select.cuh``): 256-thread blocks, each
+ranking the frames of one scenario; thread t owns points t + 256 i.
+
+* Keys: in registers, 1 per thread up to P = 256 (faster than 8 at the
+  facade's B=1, P=100; ``PERF.md`` section 6) and 8 up to P = 2048, in
+  shared memory above (up to ``SMEM_LIMIT / 4`` points). The polygon's 32 numbers
+  sit in registers for the four-sided robots (V = E = 4); any other
+  polygon is read through the read-only cache. The flow kernel builds each
+  point's coordinates in registers, so the point flow never reaches device
+  memory; the materialized kernel streams its frame's two rows once.
+* Extraction: each thread keeps the best (key, index) of its own points,
+  the float key mapped to an unsigned int of the same order. A round is
+  two ``__reduce_min_sync`` per warp (the smallest key, then the lowest
+  index holding it), the 8 warp winners into a double-buffered shared slot
+  with one barrier, and the same two reductions over the 8 in every warp:
+  no serial thread, no second barrier. Only the thread that owned the
+  winner refills it with 1e9 and finds its best again, by a tree over its
+  8 keys.
+* Frames per block: the flow kernel ranks two frames of a scenario per
+  block from about two waves of blocks on (B=512 at T+1=11): each point is
+  loaded once for both, and one round's latency yields both frames'
+  winners. At a small batch (the facade's B=1) one frame per block keeps
+  twice the blocks in flight; the materialized kernel always ranks one.
+
+The key arithmetic uses round-to-nearest intrinsics in the reference's
+expression order, so the kernels and the plain versions below agree bit
+for bit and select identical indices. The transform table and the
+per-edge reciprocals are computed here in correctly rounded float32, as
+the TPU wrappers do.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 Replaces the TPU kernel ``neupan_tpu/ops/pallas/sweep.py:sweep_spd_inverse``
 (``_sweep_body``; ``_sweep_kernel_rolled`` for n > 64) with
-``neupan_torch/csrc/sweep.cu`` (the pivot loop is the device function in
+``neupan_torch/csrc/sweep.cu`` (the element arithmetic is in
 ``csrc/sweep.cuh``; the polish kernel runs the same arithmetic in its own
 register layout).
 
@@ -10,19 +10,41 @@ What it computes: the inverse of a batch of Jacobi-scaled, ridged SPD
 matrices, n <= 96, by n pivot steps without pivoting. Sweeping pivot j
 keeps the matrix symmetric (b_jj = -1/d, b_jk = a_jk/d, b_ik = a_ik -
 a_ij a_jk/d); after all pivots the buffer holds -A^{-1}.
+``spd_inverse_scaled``, which the QP's inverses call, does the Jacobi
+scaling, the ridge and the unscaling in the same kernel on a card (the
+TPU package runs them as XLA ops around its kernel); on the CPU it runs
+them in PyTorch around the plain sweep, and with
+``inverse=sweep_spd_inverse_plain`` it is the plain version of the fused
+call on either device.
 
 Bound on the H100: bytes. The work is ~2 n^3 float operations per matrix
 against 8 n^2 bytes in and out (n=30: 54 kFLOP against 7.2 KB), far below
-the card's ~20 operations per byte; but the n pivot steps are sequential,
-so what the kernel actually waits on is n barriers per matrix.
+the card's ~20 operations per byte.
 
-Design: one block per matrix. The matrix (36 KB at n=96) is read once into
-shared memory, the n rank-1 steps run there with a barrier between steps
-(256 threads, ~4 elements each at n=30), and the inverse is written once.
-With B=512 matrices the 132 SMs each hold several blocks, which hides part
-of the barrier latency. The reciprocal is correctly rounded and the update
-uses round-to-nearest intrinsics, so the kernel equals the plain version
-below operation for operation.
+Design (``csrc/sweep.cu``), by n:
+
+* n <= 32: one warp per matrix, two matrices per 64-thread block. Lane c
+  holds column c in 32 registers. The pivot loop is rolled, yet every
+  register index is static: the rows rotate, so the pivot row is always
+  the first register and each update writes a row into the register
+  below. Per pivot each lane publishes its entry of the next pivot row
+  (stored twice, so each lane reads the rotated row as one contiguous
+  run), one ``__syncwarp``, and the next reciprocal starts while the other
+  rows update: no block barrier.
+* 32 < n <= 64: the same with two warps per matrix (the 64-thread block),
+  40 or 64 registers per lane, one ``__syncthreads`` per pivot.
+* 64 < n <= 96 (T=30's n=90): a 256-thread block per matrix, each thread
+  holding 36 elements in registers, one barrier per pivot: the thread that
+  updates row j+1 writes it into the other half of the double buffer.
+
+What bounds it on the card is the chain of n pivots, not the ~2 n^3
+operations: the next pivot needs the previous one's row j+1 and its
+reciprocal, so one warp per matrix is latency-bound and B=1 takes about
+as long as B=512 (``PERF.md`` section 6).
+
+The reciprocal, square root and division are correctly rounded and every
+product and sum uses a round-to-nearest intrinsic, so the kernel equals
+the plain versions below operation for operation.
 """
 
 from __future__ import annotations
@@ -80,7 +102,21 @@ def spd_inverse_scaled(M: torch.Tensor, inverse=sweep_spd_inverse) -> torch.Tens
     """Inverse of a batch of SPD matrices: Jacobi scaling (1/sqrt|diag|) and a
     1e-7 ridge, then ``inverse`` (the sweep), then the unscaling. Pivot-free:
     every pivot of the scaled, ridged SPD matrix is positive. The polish
-    kernel scales its two inverses by this same definition."""
+    kernel scales its two inverses by this same definition.
+
+    With the default ``inverse`` a CUDA tensor takes one launch of the sweep
+    kernel that also scales, ridges and unscales (counted on
+    ``sweep_spd_inverse.launches``); ``inverse=sweep_spd_inverse_plain`` is
+    its plain version."""
+    if inverse is sweep_spd_inverse and M.is_cuda:
+        M = M.contiguous()
+        dev, B, n = _check_input(M)
+        out = torch.empty_like(M)
+        P_, I_ = _build.PTR, _build.INT
+        fn = _build.function("sweep_spd_inverse_scaled_launch", [P_, P_, I_, I_, P_])
+        _build.launch(fn, dev, _build.ptr(M), _build.ptr(out), B, n)
+        sweep_spd_inverse.launches += 1
+        return out
     n = M.shape[-1]
     dj = 1.0 / torch.sqrt(torch.abs(torch.diagonal(M, dim1=-2, dim2=-1)) + 1e-30)
     Mt = M * dj[:, :, None] * dj[:, None, :]

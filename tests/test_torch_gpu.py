@@ -122,6 +122,86 @@ def test_select_kernel_matches_plain(cuda, B, P):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("P", [100, 256, 257, 2047, 2048, 2049, 5000])
+@pytest.mark.parametrize("case", ["fewer than K", "all masked", "half masked"])
+def test_select_kernels_keep_the_refill_rule(cuda, P, case):
+    """Both kernels, at P on either side of each key layout (one key per
+    thread up to 256, eight up to 2048, shared memory) and P no multiple
+    of 32: with fewer than
+    K unmasked points the trailing slots repeat the lowest-index 1e9 point,
+    an earlier winner included, exactly as the plain version's argmin
+    passes; indices and keys identical."""
+    B, Tp1, K = 3, 11, 10
+    pts, vels, mask, R, trans, dt, (V, G, h) = select_inputs(B=B, Tp1=Tp1, P=P, seed=P)
+    rng = np.random.default_rng(P + 1)
+    mask[:] = True
+    if case == "fewer than K":
+        mask[0] = False
+        mask[0, rng.choice(P, 4, replace=False)] = True     # 4 < K unmasked points
+        mask[1] = False                                      # one scenario all masked
+    elif case == "all masked":
+        mask[:] = False
+    else:
+        mask[:, rng.uniform(size=P) < 0.5] = False
+    args = [torch.from_numpy(a).to(cuda) for a in (pts, vels, mask, R, trans)]
+    geo = [torch.from_numpy(a).to(cuda) for a in (V, G, h)]
+    tf = SE.flow_tables(args[3], args[4], dt, *geo)[0]
+    flow = torch.stack(SE.flow_from_tables(args[0], args[1], tf), dim=2).contiguous()
+    out = {"flow": SE.select_topk_flow(*args, dt, *geo, K),
+           "flow_plain": SE.select_topk_flow_plain(*args, dt, *geo, K),
+           "frame": SE.select_topk(flow, args[2], *geo, K),
+           "frame_plain": SE.select_topk_plain(flow, args[2], *geo, K)}
+    torch.cuda.synchronize()
+    keys, idx = out["flow_plain"]
+    for name, (k, i) in out.items():
+        assert torch.equal(i, idx), name
+        assert torch.equal(k, keys), name
+    if case != "half masked":
+        assert bool((keys[1] == 1e9).all()) and bool((idx[1] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P", [100, 2047])
+@pytest.mark.parametrize("B,Tp1", [(400, 11), (1100, 4), (2200, 1)])
+def test_select_flow_kernel_ranks_two_frames_per_block_at_a_large_batch(cuda, B, Tp1, P):
+    """From about two waves of blocks on, the flow kernel ranks two frames
+    per block (a ragged last block at odd T+1, one frame of a pair at
+    T+1=1); some scenarios have fewer than K unmasked points, one none."""
+    K = 10
+    pts, vels, mask, R, trans, dt, (V, G, h) = select_inputs(B=B, Tp1=Tp1, P=P, seed=B + P)
+    rng = np.random.default_rng(Tp1)
+    mask[:] = rng.uniform(size=mask.shape) < 0.9
+    mask[:7] &= (np.arange(P) % 97 == 3)[None]
+    mask[7] = False
+    args = [torch.from_numpy(a).to(cuda) for a in (pts, vels, mask, R, trans)]
+    geo = [torch.from_numpy(a).to(cuda) for a in (V, G, h)]
+    keys, idx = SE.select_topk_flow(*args, dt, *geo, K)
+    keys_p, idx_p = SE.select_topk_flow_plain(*args, dt, *geo, K)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, idx_p) and torch.equal(keys, keys_p)
+    assert bool((idx[7] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("V", [3, 6])
+def test_select_kernels_take_any_polygon(cuda, V):
+    """The generic instance (polygon tables through the read-only cache)
+    for polygons other than the four-sided ones."""
+    from neupan_torch.utils import gen_inequal_from_vertex
+
+    ang = np.linspace(0, 2 * np.pi, V, endpoint=False) + 0.3
+    verts = np.stack([1.2 * np.cos(ang), 0.8 * np.sin(ang)]).astype(np.float32)
+    G, h = (np.asarray(a, np.float32) for a in gen_inequal_from_vertex(verts))
+    pts, vels, mask, R, trans, dt, _ = select_inputs(B=2, Tp1=5, P=700, seed=V)
+    args = [torch.from_numpy(a).to(cuda) for a in (pts, vels, mask, R, trans)]
+    geo = [torch.from_numpy(a).to(cuda) for a in (verts, G, h)]
+    keys, idx = SE.select_topk_flow(*args, dt, *geo, 10)
+    keys_p, idx_p = SE.select_topk_flow_plain(*args, dt, *geo, 10)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, idx_p) and torch.equal(keys, keys_p)
+
+
+@pytest.mark.gpu
 def test_select_kernel_on_a_materialized_flow_matches_plain_and_the_flow_kernel(cuda):
     """The same frames through both selection kernels: identical indices."""
     pts, vels, mask, R, trans, dt, (V, G, h) = select_inputs(B=3, Tp1=11, P=2048, seed=4)
@@ -234,6 +314,46 @@ def test_mlp_kernel_refuses_misaligned_points(cuda):
 def test_sweep_kernel_matches_plain(cuda, B, n):
     Mt = t32(sweep_inputs(B, n), cuda)
     X, Xp = SW.sweep_spd_inverse(Mt), SW.sweep_spd_inverse_plain(Mt)
+    torch.cuda.synchronize()
+    assert float((X - Xp).abs().max() / Xp.abs().max()) < 3e-5
+
+
+def unscaled_spd(B, n, seed=0):
+    """SPD matrices whose diagonal spans four decades, as the QP's are
+    before the Jacobi scaling."""
+    rng = np.random.default_rng(seed)
+    Q = rng.normal(size=(B, n, n))
+    s = 10.0 ** rng.uniform(-2, 2, (B, n, 1))
+    M = s * (Q @ np.swapaxes(Q, 1, 2) / n + np.eye(n)[None]) * np.swapaxes(s, 1, 2)
+    return (M + np.swapaxes(M, 1, 2)) / 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 30, 32, 33, 64, 65, 90, 96])   # each layout and its edges
+@pytest.mark.parametrize("B", [1, 513])                            # one matrix; more than a wave
+def test_sweep_kernel_at_every_layout_boundary(cuda, B, n):
+    """The unscaled kernel against its plain version, and the scaled one
+    (spd_inverse_scaled, what the QP launches) against the plain version of
+    the fused call; both keep the plain versions' arithmetic, so they agree
+    to rounding noise, one launch each."""
+    Mt = t32(sweep_inputs(B, n, seed=n), cuda)
+    M = t32(unscaled_spd(B, n, seed=n), cuda)
+    n0 = SW.sweep_spd_inverse.launches
+    X, Xs = SW.sweep_spd_inverse(Mt), SW.spd_inverse_scaled(M)
+    torch.cuda.synchronize()
+    assert SW.sweep_spd_inverse.launches == n0 + 2
+    Xp, Xsp = SW.sweep_spd_inverse_plain(Mt), SW.spd_inverse_scaled(M, SW.sweep_spd_inverse_plain)
+    assert float((X - Xp).abs().max() / Xp.abs().max()) < 3e-5
+    assert float(((Xs - Xsp).abs() / Xsp.abs().amax(dim=(1, 2), keepdim=True)).max()) < 3e-5
+
+
+@pytest.mark.gpu
+def test_sweep_scaled_kernel_takes_a_strided_input(cuda):
+    """The QP hands spd_inverse_scaled products that may be transposed views."""
+    M = t32(unscaled_spd(4, 30), cuda).transpose(1, 2)
+    assert not M.is_contiguous()
+    X = SW.spd_inverse_scaled(M)
+    Xp = SW.spd_inverse_scaled(M, SW.sweep_spd_inverse_plain)
     torch.cuda.synchronize()
     assert float((X - Xp).abs().max() / Xp.abs().max()) < 3e-5
 

@@ -26,7 +26,7 @@ from neupan_torch.ops.kernels import polish as PO
 from neupan_torch.ops.kernels import select as SE
 from neupan_torch.ops.kernels import sweep as SW
 from tests.test_torch_gpu import (ADMM_KW, admm_inputs, polish_inputs, select_inputs,
-                                  sweep_inputs, t32)
+                                  sweep_inputs, t32, unscaled_spd)
 
 
 # -- plain versions vs the Pallas kernels (CPU) ---------------------------------
@@ -165,6 +165,28 @@ def test_sweep_plain_matches_f64_inverse(B, n):
     X64 = np.linalg.inv(Mt)
     rel = np.abs(X - X64).max() / np.abs(X64).max()
     assert rel < 3e-5, rel
+
+
+@pytest.mark.parametrize("n", [1, 30, 33, 90])
+def test_spd_inverse_scaled_on_the_cpu_is_its_plain_version(n):
+    """On a card spd_inverse_scaled folds the scaling, ridge and unscaling
+    into one sweep launch; on the CPU it runs them around the plain sweep,
+    which is the fused call's plain version: the same numbers, no launch,
+    and a strided input taken as it is. Against float64 the error is
+    measured as |X - X64| / sqrt(X64_rr X64_cc), free of the diagonal's
+    four decades of scale."""
+    M = t32(unscaled_spd(3, n, seed=n))
+    n0 = SW.sweep_spd_inverse.launches
+    X = SW.spd_inverse_scaled(M)
+    assert SW.sweep_spd_inverse.launches == n0
+    torch.testing.assert_close(X, SW.spd_inverse_scaled(M, SW.sweep_spd_inverse_plain),
+                               rtol=0, atol=0)
+    Mt = M.transpose(1, 2)                       # the same matrices, symmetric
+    torch.testing.assert_close(SW.spd_inverse_scaled(Mt), SW.spd_inverse_scaled(Mt.contiguous()),
+                               rtol=0, atol=0)
+    X64 = np.linalg.inv(M.double().numpy())
+    d = np.sqrt(np.abs(np.einsum("bii->bi", X64)))
+    assert (np.abs(X.double().numpy() - X64) / (d[:, :, None] * d[:, None, :])).max() < 3e-5
 
 
 def test_admm_plain_matches_pallas_interpret():
