@@ -11,16 +11,19 @@
    beside its plain version, its bound and, where one PyTorch call computes
    the same function, that call: the kernels by CUDA events around a CUDA
    graph of 50 launches (``graph_ms``: the wrappers' Python would otherwise
-   be what is timed), the fused MLP and the PyTorch routes launch by
-   launch. The two selection kernels must return identical indices on the
-   same frames, also at the facade's shape (B=1, P=100) and where 64
+   be what is timed), as is ``encoder(points)`` beside the fused MLP; the
+   plain versions and the other PyTorch routes launch by launch. The two
+   selection kernels must return identical indices on the same frames,
+   also at the facade's shape (B=1, P=100) and where 64
    scenarios have fewer than K unmasked points and one has none (the
    trailing slots repeat the lowest-index 1e9 point); the sweep is timed
    as the QP calls it (``spd_inverse_scaled``, the scaling in the kernel)
    and on pre-scaled input, each held to 3e-5 of its plain version at
    n=30, 33 and 90; the fused MLP is also held
    against a float64 evaluation of the same weights, with the diff
-   checkpoint and, at full width, with the acker one. select, select_topk,
+   checkpoint and, at full width, with the acker one; its bound is given
+   twice, for float32 on the CUDA cores and for the tensor-core design
+   (``mlp_bounds``). select, select_topk,
    sweep, admm and polish are also timed at B=1, the facade's batch. Each
    kernel's registers and spills come from nvcc's resource report
    (``libneupan.log``).
@@ -29,16 +32,18 @@
    just before and read just after; each kernel must have been launched
    exactly as often as the path launches it:
    * fused: three chained ``batched_planner_step`` calls on the default
-     path (selection with the point flow built in the kernel). The first 32
-     scenarios are rerun on the CPU (plain versions): opt_u must agree to
-     5e-4, nrmp_valid exactly. Then ms/step at B=512 and B=1 and a
-     torch.profiler pass for the device's busy time.
+     path (selection with the point flow built in the kernel, the fused MLP
+     on the winners). The first 32 scenarios are rerun on the CPU (plain
+     versions): opt_u must agree to 5e-4, nrmp_valid exactly. Then ms/step
+     at B=512 and B=1 and a torch.profiler pass for the device's busy time.
    * dune: ``generate_point_flow`` + ``dune_forward(select="exact")`` with
      both kernel switches on (the materialized-flow selection kernel and
      the fused MLP on the winners), against the same call on the CPU.
    * mlp: three chained steps with ``dune_select="mlp"`` and the fused MLP
      kernel on all P points, the reference-parity ranking; CPU comparison,
-     ms/step and profiler pass as for the fused path.
+     ms/step and profiler pass as for the fused path. The profiler passes
+     also give the device time of ``ops/dune.py:_lam_and_distance`` per
+     DUNE call.
    * facade: a ``NeuPan`` planner built from kwargs for the corridor/diff
      configuration plans five ticks on seeded points on the card, and a
      planner without obstacle slots (K=0) three; a CPU planner of each
@@ -67,17 +72,23 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 B_MAIN = 512
 B_CPU = 32
 STEPS = 3
-PEAK_FLOPS = 67e12     # H100 SXM float32 outside the tensor cores
+PEAK_FLOPS = 67e12     # H100 SXM float32 outside the tensor cores (an FMA counts 2)
+PEAK_TF32 = 495e12     # H100 SXM TF32 on the tensor cores, dense
+PEAK_MUFU = PEAK_FLOPS / 16   # 16 special-function results per clock per SM, 128 FMA lanes
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3
+# tanhf as nvcc compiles it for sm_90a: 9 float32 instructions (6 FFMA, 2 FMUL,
+# 1 FADD) and 2 MUFU, besides 4 compares, selects and logic ops on the integer
+# pipe (scripts/exp_mlp_timing.py, "sass_per_tanh")
+TANH_FP32, TANH_MUFU = 9, 2
 # launches of each kernel in one planner step (2 PAN iterations): one DUNE
 # call per iteration, which is 1 select (the flow-building selection kernel,
-# default path) or 1 mlp (the fused encoder on all P points, dune_select=
-# "mlp" with the MLP kernel on) and never select_topk (the materialized-flow
-# selection kernel, which only dune_forward(select="exact", use_kernel=True)
-# launches); sweep 1 equality Gram + 2 ADMM phases per QP; admm 2 phases per
-# QP; polish 5 rounds per QP
+# default path) and 1 mlp (the fused encoder, on by default on the card: on
+# the K winners per frame, or on all P points with dune_select="mlp") and
+# never select_topk (the materialized-flow selection kernel, which only
+# dune_forward(select="exact", use_kernel=True) launches); sweep 1 equality
+# Gram + 2 ADMM phases per QP; admm 2 phases per QP; polish 5 rounds per QP
 QP_PER_STEP = {"sweep": 6, "admm": 4, "polish": 10}
-PER_STEP = {"select": 2, "select_topk": 0, "mlp": 0, **QP_PER_STEP}
+PER_STEP = {"select": 2, "select_topk": 0, "mlp": 2, **QP_PER_STEP}
 PER_STEP_MLP = {"select": 0, "select_topk": 0, "mlp": 2, **QP_PER_STEP}
 PER_STEP_NO_OBS = {"select": 0, "select_topk": 0, "mlp": 0, **QP_PER_STEP}
 PER_DUNE_CALL = {"select": 0, "select_topk": 1, "mlp": 1, "sweep": 0, "admm": 0, "polish": 0}
@@ -97,6 +108,7 @@ ENTRIES = {"select": ("select_flow_kernel",), "select_topk": ("select_kernel",),
            "mlp": ("dune_mlp_kernel",), "sweep": ("sweep_regs_kernel", "sweep_tiled_kernel"),
            "admm": ("admm_regs_kernel", "admm_smem_kernel"), "polish": ("box_candidate_kernel",)}
 FACADE_TICKS, NO_OBS_TICKS = 5, 3
+GLUE = "dune._lam_and_distance"   # the profiler's range around that glue
 
 
 def fail(msg: str) -> None:
@@ -203,10 +215,34 @@ def select_topk_work(B, Tp1, P, V, E, K):
 
 
 def mlp_work(N, E, H=32):
-    matmul = 2 * (2 * H + 4 * H * H + H * E)
-    layer_norm = 3 * 7 * H                     # mean, centre, variance, normalize, affine
-    act = 3 * H + 2 * H + E + 5 * H + E        # tanh, relu, bias adds
-    return N * (matmul + layer_norm + act), N * (2 + E) * 4 + 4776 * 4
+    """Per call: multiply-adds of the six products, float32 instructions of
+    the rest (three LayerNorms at 5 per feature: sum, centre, square,
+    normalize, affine; ReLUs; 96 tanh at TANH_FP32 each), MUFU operations
+    (TANH_MUFU per tanh, one reciprocal square root per LayerNorm) and bytes
+    (points read, duals written, the kernel's weights read once)."""
+    from neupan_torch.ops.kernels.mlp import KERNEL_SIZE
+
+    macs = 2 * H + 4 * H * H + H * E
+    elementwise = 3 * 5 * H + 2 * H + E + 3 * H * TANH_FP32
+    mufu = 3 * H * TANH_MUFU + 3
+    return dict(macs=N * macs, fp32=N * elementwise, mufu=N * mufu,
+                bytes=N * (2 + E) * 4 + KERNEL_SIZE * 4)
+
+
+def mlp_bounds(N, E):
+    """The fused MLP's least time, (ms, what bounds it), for two designs:
+    float32 on the CUDA cores (every product an FMA, beside the elementwise
+    work on the same pipe) and the tensor cores (the products three TF32
+    passes at the TF32 rate, the elementwise work at the float32 rate, the
+    MUFU work at its own; the largest wins)."""
+    w = mlp_work(N, E)
+    t_bytes = w["bytes"] / PEAK_BYTES
+    t_mufu = w["mufu"] / PEAK_MUFU
+    cuda_core = {"operations": max(2 * (w["macs"] + w["fp32"]) / PEAK_FLOPS, t_mufu), "bytes": t_bytes}
+    tensor_core = {"operations": max(3 * 2 * w["macs"] / PEAK_TF32, 2 * w["fp32"] / PEAK_FLOPS, t_mufu),
+                   "bytes": t_bytes}
+    pick = lambda t: (max(t.values()) * 1e3, max(t, key=t.get))
+    return {"cuda_core": pick(cuda_core), "tensor_core": pick(tensor_core)}
 
 
 def sweep_work(B, n):
@@ -384,17 +420,17 @@ def kernel_phase(torch, dev):
             err, e64 = mlp_errors(encoder, mlp_pts)
             check(err <= 1e-5, f"mlp N={N}: kernel differs from the plain version by {err} "
                   f"(from float64: {e64})")
-            ops, nbytes = mlp_work(N, E)
-            reps = 20 if N > 1e6 else 100
+            bounds = mlp_bounds(N, E)
+            reps = 10 if N > 1e6 else 50
             r = dict(shape=f"N={N} E={E}", max_abs_err=err, err_vs_f64=e64["kernel"],
                      plain_err_vs_f64=e64["plain"],
-                     ms=time_ms(torch, lambda: ML.dune_mlp(encoder, mlp_pts), reps),
-                     plain_ms=time_ms(torch, lambda: ML.dune_mlp_plain(packed, mlp_pts, E),
-                                      max(reps // 10, 3)),
-                     library_ms=time_ms(torch, lambda: encoder(mlp_pts), max(reps // 10, 3)),
-                     bound=bound(ops, nbytes))
-            res["mlp_by_n"][N] = {k: v for k, v in r.items() if k != "bound"}
-            res["mlp_by_n"][N].update(bound_ms=r["bound"][0], bound_by=r["bound"][1])
+                     ms=graph_ms(torch, lambda: ML.dune_mlp(encoder, mlp_pts), reps),
+                     plain_ms=time_ms(torch, lambda: ML.dune_mlp_plain(packed, mlp_pts, E), 3),
+                     library_ms=graph_ms(torch, lambda: encoder(mlp_pts), reps),
+                     bound=bounds["tensor_core"], bound_cuda_core=bounds["cuda_core"])
+            res["mlp_by_n"][N] = {k: v for k, v in r.items() if not k.startswith("bound")}
+            res["mlp_by_n"][N].update(bound_ms=r["bound"][0], bound_by=r["bound"][1],
+                                      bound_ms_cuda_core=r["bound_cuda_core"][0])
             if "mlp" not in res:     # the full-width shape stands in the kernels' line
                 res["mlp"] = r
         res["mlp"]["max_abs_err"] = max(v["max_abs_err"] for v in res["mlp_by_n"].values())
@@ -771,17 +807,39 @@ def facade_path(torch):
 def profile_step(torch, spec, encoder, geom, adjust, data):
     """Device kernel time over the chained B=512 steps (torch.profiler).
 
-    Returns the device's kernel-busy time and kernel count per step, and a
-    table of device time by kernel name.
+    Returns the device's kernel-busy time and kernel count per step, the
+    fused MLP's and ``_lam_and_distance``'s device time per DUNE call, and
+    a table of device time by kernel name.
     """
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run_chain(torch, spec, encoder, geom, adjust, data, dev=data["pts"][0].device)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    from neupan_torch.ops import dune as D
+
+    glue, calls = D._lam_and_distance, [0]
+
+    def lam_and_distance(*args):
+        calls[0] += 1
+        with record_function(GLUE):
+            return glue(*args)
+
+    D._lam_and_distance = lam_and_distance
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run_chain(torch, spec, encoder, geom, adjust, data, dev=data["pts"][0].device)
+            torch.cuda.synchronize()
+    finally:
+        D._lam_and_distance = glue
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA and e.name != GLUE]
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    # the kernels that ran inside the glue's ranges on the device timeline
+    spans = [e.time_range for e in events if e.device_type == DeviceType.CUDA and e.name == GLUE]
+    glue_us = sum(k.time_range.elapsed_us() for k in kernels
+                  if any(r.start <= k.time_range.start and k.time_range.end <= r.end for r in spans))
+    if not spans:   # no device-side ranges: the host ranges' device time
+        glue_us = sum(getattr(e, "device_time_total", 0.0) for e in events
+                      if e.device_type == DeviceType.CPU and e.name == GLUE)
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
@@ -790,9 +848,12 @@ def profile_step(torch, spec, encoder, geom, adjust, data):
     lines = [f"device kernels over {STEPS} steps, by name (us, share of busy time)"]
     lines += [f"{t:12.1f} {t / busy_us:7.2%}  {name[:140]}"
               for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:30]]
+    mlp_us = sum(t for n, t in by_name.items() if any(k in n for k in ENTRIES["mlp"]))
     summary = {"device_busy_ms_per_step": busy_us / 1e3 / STEPS,
                "device_kernels_per_step": len(kernels) / STEPS,
-               "hand_kernels_ms_per_step": ours_us / 1e3 / STEPS}
+               "hand_kernels_ms_per_step": ours_us / 1e3 / STEPS,
+               "mlp_kernel_ms_per_dune_call": mlp_us / 1e3 / calls[0],
+               "lam_and_distance_ms_per_dune_call": glue_us / 1e3 / calls[0]}
     return summary, "\n".join(lines)
 
 
@@ -844,6 +905,9 @@ def main() -> None:
             "ptxas": {e: u for e, u in usage.items() if e.split("<")[0] in ENTRIES[name]}})
         if "ms_B1" in r:
             entries[-1].update(ms_B1=r["ms_B1"], bound_ms_B1=r["bound_B1"][0])
+        if "bound_cuda_core" in r:
+            entries[-1].update(bound_design="tensor_core",
+                               bound_ms_cuda_core=r["bound_cuda_core"][0])
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"build_s": build_s, "sweep_by_n": kern["sweep_by_n"],
                       "select_refill": kern["select_refill"],

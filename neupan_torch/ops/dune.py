@@ -107,11 +107,16 @@ def _run_encoder(encoder, pts: torch.Tensor, mlp_kernel: bool) -> torch.Tensor:
 def _lam_and_distance(mu: torch.Tensor, pf: torch.Tensor, R_all: torch.Tensor,
                       G: torch.Tensor, h: torch.Tensor):
     """lam = -R G' mu (B, T+1, 2, N) and d = mu'(G p0 - h) (B, T+1, N) of
-    mu (B, T+1, N, E) at the robot-frame points pf (B, T+1, 2, N)."""
+    mu (B, T+1, N, E) at the robot-frame points pf (B, T+1, 2, N).
+
+    Broadcast products summed over E and over the two coordinates: as
+    batched products, (2 x E)(E x N) per frame, cuBLAS runs them as a gemv
+    five times slower at N = 2048, B = 512 (scripts/exp_dune_glue_timing.py)."""
+    mu_t = mu.transpose(2, 3)                                     # (B, T+1, E, N)
     RG = torch.einsum("ntab,eb->ntae", R_all, G)                  # (B, T+1, 2, E)
-    lam = -torch.einsum("ntae,ntke->ntak", RG, mu)
-    Gp = torch.einsum("eb,ntbk->ntek", G, pf) - h.reshape(1, 1, -1, 1)
-    return lam, torch.einsum("ntke,ntek->ntk", mu, Gp)
+    lam = -(RG[..., None] * mu_t[:, :, None]).sum(dim=3)
+    Gp = (G[:, :, None] * pf[:, :, None]).sum(dim=3) - h.reshape(1, 1, -1, 1)
+    return lam, (mu_t * Gp).sum(dim=2)
 
 
 def _take(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -7,22 +7,34 @@ What it computes: ``ObsPointNet`` on N points, (N, 2) -> (N, E):
 2 -> 32 [LayerNorm, tanh] -> 32 [ReLU] -> 32 [LayerNorm, tanh] -> 32 [ReLU]
 -> 32 [LayerNorm, tanh] -> E [ReLU], every intermediate kept on chip.
 
-Bound on the H100: operations. A point costs ~8.6 kFLOP (four 32x32
-products, the 2x32 and 32xE ones, three LayerNorms, 96 tanh) against 8
-bytes read and 4E written: at N = 11.5M points and E = 4 that is ~99 GFLOP
-(~1.5 ms at the card's float32 rate) against ~280 MB (~0.08 ms). At the
-winners-only N = 56,320 both are microseconds and the launch dominates.
+Bound on the H100: operations, against 8 bytes read and 4E written per
+point. A point needs 4,288 multiply-adds at E=4 (the four 32x32 products,
+the 2x32 and 32xE ones), three LayerNorms and 96 tanh; a tanh costs two
+MUFU operations and nine float32 ones on the card, so counted at its cost
+and not as one operation the elementwise work is a third of the products'.
+``chip_smoke.py:mlp_bounds`` gives two bounds: float32 on the CUDA cores
+(every product an FMA, 1.96 ms at 11.5M points) and the tensor-core design
+(three TF32 passes of the products against the elementwise work at the
+float32 and MUFU rates, 0.60 ms, taking the TF32 rate of the warpgroup
+mma). This kernel is the tensor-core design on ``mma.sync``, which reaches
+about a third of that rate on Hopper: that, with the elementwise work
+around the products, holds it to four times the bound.
 
-Design: one thread per point. The point's hidden state (32 floats) stays in
-the thread's registers; the weights (4,776 floats, 19 KB) are packed once
-per module into one buffer, copied by each block into shared memory and
-read there as 16-byte broadcasts; LayerNorm is a per-thread mean and
-variance with no cross-thread reduction; blocks walk the points with a grid
-stride and the ragged end is a predicate in the kernel, so nothing is
-padded or copied. Float32 FMAs: TF32 on the tensor cores keeps three digits
-and the contract against the plain version is 1e-5. The normalization is
-``1 / sqrtf`` (correctly rounded), the activation the accurate ``tanhf``.
-The kernel is written for a hidden width of 32, two inputs and E <= 8.
+Design (``csrc/mlp.cu``): a warp carries 16 points at a time through the
+network in registers, the products on the tensor cores as TF32
+``mma.sync`` at float32 accuracy by error-compensated TF32 (each operand a
+TF32 high and low part; hi*hi + hi*lo + lo*hi). A point's 32 features lie
+across the four lanes of a quad, as the accumulator fragment leaves them;
+LayerNorm reduces over the quad with two shuffles. The packing permutes
+each weight matrix's rows so that one layer's accumulator fragment is the
+next one's A fragment as it stands. ``pack_weights`` splits the weights
+and lays them out as B fragments once per module; the kernel copies them
+(36.5 KB) into shared memory once per block. The tensor cores round their
+sums toward zero; the layers before a ReLU and the head therefore add each
+k-step's hi*hi tile rounding to nearest, while before a LayerNorm the
+common drift leaves with the mean. The normalization is ``rsqrtf`` with one
+Newton step, the activation the accurate ``tanhf``. The kernel is written
+for a hidden width of 32, two inputs and E <= 8.
 """
 
 from __future__ import annotations
@@ -39,7 +51,7 @@ _LN_AFTER = {0: 1, 2: 6, 4: 11}   # linear layer number -> its LayerNorm's index
 
 
 def _layout():
-    """(name, shape as packed) of each block of the packed weights, in order:
+    """(name, shape as packed) of each block of the plain section, in order:
     w_i stored (in, out), the head zero-padded to MAX_E columns."""
     H = HIDDEN
     blocks = []
@@ -52,7 +64,12 @@ def _layout():
     return blocks
 
 
-PACKED_SIZE = sum(int(torch.Size(shape).numel()) for _, shape in _layout())
+PLAIN_SIZE = sum(int(torch.Size(shape).numel()) for _, shape in _layout())      # 4,776
+# the kernel's section: w0, the biases and LayerNorm parameters, then the B
+# fragments of the five tensor-core products (32x32 x4, 32xMAX_E)
+_FRAG_SIZE = 4 * (HIDDEN * HIDDEN * 2) + HIDDEN * MAX_E * 2
+KERNEL_SIZE = 2 * HIDDEN + 11 * HIDDEN + MAX_E + _FRAG_SIZE                      # 9,128
+PACKED_SIZE = PLAIN_SIZE + KERNEL_SIZE
 
 
 def _check_encoder(encoder) -> int:
@@ -75,29 +92,65 @@ def _check_encoder(encoder) -> int:
     return E
 
 
+def _plain_blocks(encoder):
+    """The plain section's blocks from the live parameters, by name
+    (differentiable in them)."""
+    E = encoder.MLP[_LINEAR_IDX[-1]].out_features
+    seq, blocks = encoder.MLP, {}
+    for i, idx in enumerate(_LINEAR_IDX):
+        w, b = seq[idx].weight.t().float(), seq[idx].bias.float()   # (in, out)
+        if i == 5:
+            w = torch.nn.functional.pad(w, (0, MAX_E - E))
+            b = torch.nn.functional.pad(b, (0, MAX_E - E))
+        blocks[f"w{i}"], blocks[f"b{i}"] = w, b
+        if i in _LN_AFTER:
+            ln = seq[_LN_AFTER[i]]
+            blocks[f"ln{i // 2}_scale"], blocks[f"ln{i // 2}_bias"] = ln.weight.float(), ln.bias.float()
+    return blocks
+
+
+def _plain_section(blocks) -> torch.Tensor:
+    return torch.cat([blocks[name].reshape(-1) for name, _ in _layout()])
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 stored mantissa bits), to nearest with
+    ties away from zero, as ``cvt.rna.tf32.f32``."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def b_fragments(w: torch.Tensor) -> torch.Tensor:
+    """A (32, 8 NT) weight (in, out) as the kernel's B fragments, flat:
+    [k-step kk][n-tile j][lane 4g + t] x (hi of row 8kk + 2t, hi of row
+    8kk + 2t + 1, lo of the same two), column 8j + g. Rows 2t and 2t + 1 of
+    a k-step are the columns t and t + 4 of its A fragment, which is where
+    the previous layer's accumulator fragment holds those two features."""
+    NT = w.shape[1] // 8
+    frag = lambda x: x.reshape(4, 4, 2, NT, 8).permute(0, 3, 4, 1, 2)   # (kk, j, g, t, row parity)
+    hi = tf32_round(w)
+    return torch.cat([frag(hi), frag(tf32_round(w - hi))], dim=-1).reshape(-1)
+
+
 def pack_weights(encoder) -> torch.Tensor:
     """The encoder's parameters as the one contiguous float32 buffer the
-    kernel reads, on the parameters' device. Packed once per module and kept
-    on it; repacked when a parameter was updated, replaced or moved."""
-    E = _check_encoder(encoder)
+    kernel reads, on the parameters' device: the plain section (what
+    ``dune_mlp_plain`` reads), then the kernel's (``csrc/mlp.cu``). Packed
+    once per module and kept on it; repacked when a parameter was updated,
+    replaced or moved."""
+    _check_encoder(encoder)
     params = list(encoder.parameters())
     stamp = tuple((p.data_ptr(), p._version, p.device, p.dtype) for p in params)
     cached = getattr(encoder, "_dune_mlp_packed", None)
     if cached is not None and cached[0] == stamp:
         return cached[1]
-    seq = encoder.MLP
-    parts = []
     with torch.no_grad():
-        for i, idx in enumerate(_LINEAR_IDX):
-            w, b = seq[idx].weight.t().float(), seq[idx].bias.float()   # (in, out)
-            if i == 5:
-                w = torch.nn.functional.pad(w, (0, MAX_E - E))
-                b = torch.nn.functional.pad(b, (0, MAX_E - E))
-            parts += [w.reshape(-1), b]
-            if i in _LN_AFTER:
-                ln = seq[_LN_AFTER[i]]
-                parts += [ln.weight.float(), ln.bias.float()]
-        packed = torch.cat(parts).contiguous()
+        w = _plain_blocks(encoder)
+        small = [w["w0"].reshape(-1), w["b0"], w["ln0_scale"], w["ln0_bias"], w["b1"], w["b2"],
+                 w["ln1_scale"], w["ln1_bias"], w["b3"], w["b4"], w["ln2_scale"],
+                 w["ln2_bias"], w["b5"]]
+        frags = [b_fragments(w[f"w{i}"]) for i in range(1, 6)]
+        packed = torch.cat([_plain_section(w)] + small + frags).contiguous()
     assert packed.numel() == PACKED_SIZE
     encoder._dune_mlp_packed = (stamp, packed)
     return packed
@@ -114,7 +167,8 @@ def _unpack(packed: torch.Tensor):
 
 def dune_mlp_plain(packed: torch.Tensor, points: torch.Tensor, E: int) -> torch.Tensor:
     """The same function as the kernel in plain PyTorch, written out layer
-    by layer from the packed weights: points (..., 2) -> (..., E)."""
+    by layer from the plain section of the packed weights (the kernel's
+    section is not read): points (..., 2) -> (..., E)."""
     w = _unpack(packed)
 
     def ln(x, j):
@@ -134,28 +188,34 @@ def dune_mlp(encoder, points: torch.Tensor) -> torch.Tensor:
     """Evaluate the encoder on points (..., 2) float32 -> duals (..., E).
 
     On a CUDA tensor this launches the fused kernel, which has no backward
-    pass (the TPU kernel has none either): it raises for points that
-    require a gradient while gradients are recorded. The encoder must sit
-    on the points' device.
+    pass (the TPU kernel has none either): while gradients are recorded it
+    raises for points or encoder parameters that require one. On the CPU
+    the plain version carries both gradients: it reads the live parameters
+    then, as ``encoder(points)`` does. The encoder must sit on the points'
+    device.
     """
     dev = _build.dispatch_device(points)
     if points.dim() < 1 or points.shape[-1] != 2:
         raise ValueError(f"points must be (..., 2), got {tuple(points.shape)}")
     _build.check(points, "points", tuple(points.shape), device=dev)
-    packed = pack_weights(encoder)
-    if packed.device != dev:
-        raise ValueError(f"the encoder is on {packed.device}, the points on {dev}")
-    E = encoder.MLP[_LINEAR_IDX[-1]].out_features
+    E = _check_encoder(encoder)
+    wdev = next(encoder.parameters()).device
+    if wdev != dev:
+        raise ValueError(f"the encoder is on {wdev}, the points on {dev}")
+    grads = torch.is_grad_enabled() and (
+        points.requires_grad or any(p.requires_grad for p in encoder.parameters()))
     if dev.type == "cpu":
+        packed = _plain_section(_plain_blocks(encoder)) if grads else pack_weights(encoder)
         return dune_mlp_plain(packed, points, E)
-    if torch.is_grad_enabled() and points.requires_grad:
-        raise RuntimeError("the fused MLP kernel has no backward pass; "
-                           "run it under torch.no_grad() or use the encoder module")
+    if grads:
+        raise RuntimeError("the fused MLP kernel has no backward pass; run it under "
+                           "torch.no_grad() or use the encoder module")
+    packed = pack_weights(encoder)
     N = points.numel() // 2
     out = torch.empty((*points.shape[:-1], E), dtype=torch.float32, device=dev)
     if N == 0:
         return out
-    # the kernel reads a point as one 8-byte word and a weight row in 16-byte words
+    # the kernel reads a point as one 8-byte word and the weights in 16-byte words
     if points.data_ptr() % 8 or packed.data_ptr() % 16 or out.data_ptr() % 16:
         raise ValueError("points must start on an 8-byte boundary (a view at an odd float "
                          "offset does not: clone it), the packed weights on a 16-byte one")

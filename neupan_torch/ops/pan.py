@@ -57,7 +57,10 @@ class PANSpec:
     # also picks the fused path, which never materializes the point flow.
     dune_kernel: Optional[bool] = None
     # Run the encoder through the fused MLP kernel (the JAX package's
-    # dune_mlp_pallas). None = auto: off, as in the JAX package.
+    # dune_mlp_pallas). None = auto: on for CUDA tensors while no gradient
+    # is recorded (on the card the kernel beats the module at every point
+    # count the paths give it, PERF.md section 6); off on the CPU, as in
+    # the JAX package.
     dune_mlp_kernel: Optional[bool] = None
 
     def __post_init__(self):
@@ -73,10 +76,13 @@ class PANSpec:
             return self.dune_kernel
         return self.dune_select == "exact"
 
-    def use_dune_mlp_kernel(self) -> bool:
+    def use_dune_mlp_kernel(self, device=None) -> bool:
+        """Whether the encoder runs through the fused MLP kernel for points
+        on ``device`` (None: no device, so auto is off)."""
         if self.dune_mlp_kernel is not None:
             return self.dune_mlp_kernel
-        return False
+        return (device is not None and torch.device(device).type == "cuda"
+                and not torch.is_grad_enabled())
 
 
 class PANState(NamedTuple):
@@ -188,7 +194,7 @@ def pan_forward(spec: PANSpec, encoder, vertices: torch.Tensor, G: torch.Tensor,
     nrmp_val = torch.zeros((B, K), dtype=torch.bool, device=nom_s.device)
     cur = state
 
-    use_kernel, mlp_kernel = spec.use_dune_kernel(), spec.use_dune_mlp_kernel()
+    use_kernel, mlp_kernel = spec.use_dune_kernel(), spec.use_dune_mlp_kernel(points.device)
     admm = _admm_with_elim(spec)
     admm_warm = (admm if spec.admm_warm_iters is None else
                  dataclasses.replace(admm, iters=int(spec.admm_warm_iters)))

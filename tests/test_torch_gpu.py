@@ -280,6 +280,8 @@ def test_mlp_kernel_takes_other_head_widths(cuda, E):
 
 @pytest.mark.gpu
 def test_mlp_kernel_refuses_a_gradient_and_a_foreign_encoder(cuda):
+    """No backward pass: points or encoder parameters that require a
+    gradient while one is recorded raise instead of losing it."""
     from neupan_torch.models import load_checkpoint
 
     ckpt = os.path.join(ROOT, "examples/model/diff_robot_default/model.npz")
@@ -288,6 +290,63 @@ def test_mlp_kernel_refuses_a_gradient_and_a_foreign_encoder(cuda):
         ML.dune_mlp(load_checkpoint(ckpt, cuda), pts)
     with pytest.raises(ValueError, match="encoder is on"):
         ML.dune_mlp(load_checkpoint(ckpt, "cpu"), pts.detach())
+    enc = load_checkpoint(ckpt, cuda)                 # its parameters require a gradient
+    n0 = ML.dune_mlp.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        ML.dune_mlp(enc, pts.detach())
+    with torch.no_grad():
+        ML.dune_mlp(enc, pts.detach())
+    enc.requires_grad_(False)
+    out = ML.dune_mlp(enc, pts.detach())
+    torch.cuda.synchronize()
+    assert ML.dune_mlp.launches == n0 + 2 and out.grad_fn is None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [15, 16, 17, 127, 128, 129, 4095, 4097, 33791, 33793])
+def test_mlp_kernel_at_tile_block_and_wave_boundaries(cuda, N):
+    """A warp carries 16 points, a block of 8 warps 128; 33,792 points fill
+    one wave of two blocks on each of 132 SMs, one more sends a warp round
+    its grid-stride loop again. The ragged end and the second pass agree
+    with the plain version on the same card."""
+    from neupan_torch.models import load_checkpoint
+
+    enc = load_checkpoint(os.path.join(ROOT, "examples/model/diff_robot_default/model.npz"), cuda)
+    pts = t32(np.random.default_rng(N).uniform(-10, 10, (N, 2)), cuda)
+    with torch.no_grad():
+        out = ML.dune_mlp(enc, pts)
+        packed = ML.pack_weights(enc)
+        ref = ML.dune_mlp_plain(packed, pts, 4)
+        ref64 = ML.dune_mlp_plain(packed.double(), pts.double(), 4)
+    torch.cuda.synchronize()
+    plain_f64 = float((ref.double() - ref64).abs().max())
+    assert float((out.double() - ref64).abs().max()) <= 1e-5
+    assert float((out - ref).abs().max()) <= 1e-5 + plain_f64
+
+
+@pytest.mark.gpu
+def test_mlp_kernel_through_a_strided_caller(cuda):
+    """The DUNE paths hand the kernel a transposed view of the point flow;
+    the wrapper refuses it as it is, and the paths' copy gives the kernel's
+    answer on a contiguous tensor."""
+    from neupan_torch.models import load_checkpoint
+    from neupan_torch.ops.dune import _run_encoder
+
+    enc = load_checkpoint(os.path.join(ROOT, "examples/model/diff_robot_default/model.npz"), cuda)
+    pf = t32(np.random.default_rng(3).uniform(-8, 8, (3, 5, 2, 10)), cuda)
+    view = pf.transpose(2, 3)
+    assert not view.is_contiguous()
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="contiguous"):
+            ML.dune_mlp(enc, view)
+        n0 = ML.dune_mlp.launches
+        out = _run_encoder(enc, view, True)
+        direct = ML.dune_mlp(enc, view.contiguous())
+        ref = ML.dune_mlp_plain(ML.pack_weights(enc), view, 4)
+    torch.cuda.synchronize()
+    assert ML.dune_mlp.launches == n0 + 2 and out.shape == (3, 5, 10, 4)
+    assert torch.equal(out, direct)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.gpu
@@ -474,12 +533,13 @@ def test_step_on_the_card_matches_cpu_and_launches_every_kernel(cuda):
     adjust = AdjustParams(*(torch.tensor(v) for v in (1.0, 1.0, 10.0, 1.0, 0.1)))
     ref = batched_planner_step(spec, load_checkpoint(ckpt, "cpu"), *robot.tensors("cpu"),
                                adjust, *args, batched_init_state(spec, B, "cpu"))
-    wrappers = (SE.select_topk_flow, SW.sweep_spd_inverse, AD.admm_iterate, PO.box_candidate)
+    wrappers = (SE.select_topk_flow, SW.sweep_spd_inverse, AD.admm_iterate, PO.box_candidate,
+                ML.dune_mlp)
     before = [w.launches for w in wrappers]
     out = batched_planner_step(spec, load_checkpoint(ckpt, cuda), *robot.tensors(cuda),
                                AdjustParams(*(t.to(cuda) for t in adjust)),
                                *(a.to(cuda) for a in args), batched_init_state(spec, B, cuda))
     torch.cuda.synchronize()
-    assert [w.launches - n for w, n in zip(wrappers, before)] == [2, 6, 4, 10]
+    assert [w.launches - n for w, n in zip(wrappers, before)] == [2, 6, 4, 10, 2]
     assert float((out.opt_u.cpu() - ref.opt_u).abs().max()) <= 5e-4
     assert torch.equal(out.nrmp_valid.cpu(), ref.nrmp_valid)

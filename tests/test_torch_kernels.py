@@ -158,6 +158,185 @@ def test_mlp_packed_weights_follow_the_module():
     assert p.grad is not None and bool(p.grad.abs().sum() > 0)
 
 
+def test_mlp_plain_carries_the_weight_gradients_on_the_cpu():
+    """With gradients recorded the plain route reads the live parameters, so
+    every weight's gradient equals the module's; under no_grad it reads the
+    packed buffer."""
+    enc = ObsPointNet.seeded(2, 4, seed=5, device="cpu")
+    pts = torch.from_numpy(np.random.default_rng(5).uniform(-6, 6, (257, 2)).astype(np.float32))
+    w = torch.from_numpy(np.random.default_rng(6).normal(size=(257, 4)).astype(np.float32))
+    (ML.dune_mlp(enc, pts) * w).sum().backward()
+    got = {n: p.grad.clone() for n, p in enc.named_parameters()}
+    enc.zero_grad()
+    (enc(pts) * w).sum().backward()
+    for n, p in enc.named_parameters():
+        assert float(p.grad.abs().max()) > 0, n
+        torch.testing.assert_close(got[n], p.grad, rtol=1e-5, atol=1e-5, msg=n)
+    with torch.no_grad():
+        assert ML.dune_mlp(enc, pts).grad_fn is None
+    assert ML.dune_mlp(enc, pts).grad_fn is not None
+
+
+def test_mlp_packed_split_weights_sum_to_the_weights_and_the_plain_version_ignores_them():
+    """The kernel's section: w0, biases and LayerNorm parameters as they are,
+    then every product's weights as TF32 high and low parts (13 low bits
+    zero) in B-fragment order, hi + lo within 2^-23 of the float32 weight.
+    The plain version reads the plain section only."""
+    enc = ObsPointNet.seeded(2, 3, seed=7, device="cpu")
+    packed = ML.pack_weights(enc)
+    kern = packed[ML.PLAIN_SIZE:]
+    assert packed.numel() == ML.PLAIN_SIZE + ML.KERNEL_SIZE and kern.numel() == 9128
+    small = 2 * 32 + 11 * 32 + 8
+    blocks = ML._plain_blocks(enc)
+    torch.testing.assert_close(kern[:64], blocks["w0"].reshape(-1), rtol=0, atol=0)
+    torch.testing.assert_close(kern[416:419], blocks["b5"][:3], rtol=0, atol=0)
+    frags, off = kern[small:], 0
+    for i, nt in zip(range(1, 6), (4, 4, 4, 4, 1)):
+        f = frags[off:off + 4 * nt * 32 * 4].reshape(4, nt, 8, 4, 4)     # kk, j, g, t, slot
+        off += f.numel()
+        assert not bool((f.contiguous().view(torch.int32) & 0x1FFF).any())
+        # lane (g, t) of k-step kk, n-tile j holds rows 8kk + 2t (+1) of column 8j + g
+        hi = f[..., :2].permute(0, 3, 4, 1, 2).reshape(32, 8 * nt).double()
+        lo = f[..., 2:].permute(0, 3, 4, 1, 2).reshape(32, 8 * nt).double()
+        w = blocks[f"w{i}"].double()
+        assert bool(((hi + lo - w).abs() <= 2.0 ** -23 * w.abs()).all()), i
+    pts = torch.from_numpy(np.random.default_rng(7).uniform(-6, 6, (100, 2)).astype(np.float32))
+    spoiled = packed.clone()
+    spoiled[ML.PLAIN_SIZE:] = float("nan")
+    torch.testing.assert_close(ML.dune_mlp_plain(spoiled, pts, 3), ML.dune_mlp_plain(packed, pts, 3),
+                               rtol=0, atol=0)
+
+
+_LANE = torch.arange(32)
+_QG, _QT = _LANE // 4, _LANE % 4          # lane 4g + t
+
+
+def _toward_zero(x64):
+    f = x64.float()
+    return torch.where(f.double().abs() > x64.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _emulate_mlp_kernel(packed, pts, E):
+    """csrc/mlp.cu's arithmetic on the CPU, fragment by fragment, 16 points
+    a tile: the kernel's section of the packed weights read by the lane
+    mapping of mma.sync m16n8k8 TF32 (B fragment b0 = B[t][g], b1 = B[t+4][g];
+    A fragment A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4] taken from the
+    previous accumulator's registers 0, 2, 1, 3; accumulator D[g][2t],
+    D[g][2t+1], D[g+8][2t], D[g+8][2t+1]); activations split into TF32 high
+    and low parts by bit masking; each mma's sum exact, then rounded toward
+    zero; the hi*hi tiles of the layers before a ReLU and of the head added
+    to the accumulator rounding to nearest, those before a LayerNorm carried
+    in it."""
+    kern = packed[ML.PLAIN_SIZE:]
+    vec = lambda k, n=32: kern[k:k + n]
+    w0, b0 = vec(0, 64).reshape(2, 32), vec(64)
+    ln = [(vec(96), vec(128)), (vec(224), vec(256)), (vec(352), vec(384))]
+    bias = [vec(160), vec(192), vec(288), vec(320), vec(416, 8)]
+    frags, off = [], 424
+    for nt in (4, 4, 4, 4, 1):
+        frags.append(kern[off:off + 4 * nt * 32 * 4].reshape(4, nt, 32, 4))
+        off += 4 * nt * 32 * 4
+    N = pts.shape[0]
+    tiles = -(-N // 16)
+    p = torch.zeros(tiles * 16, 2)
+    p[:N] = pts
+    p = p.reshape(tiles, 16, 2)
+
+    def a_matrix(regs):                     # (tiles, lane, 4) -> (tiles, 16, 8)
+        A = regs.new_zeros(tiles, 16, 8)
+        A[:, _QG, _QT], A[:, _QG + 8, _QT], A[:, _QG, _QT + 4], A[:, _QG + 8, _QT + 4] = \
+            regs.unbind(-1)
+        return A.double()
+
+    def b_matrix(b0_, b1_):
+        B = b0_.new_zeros(8, 8)
+        B[_QT, _QG], B[_QT + 4, _QG] = b0_, b1_
+        return B.double()
+
+    def c_registers(D):                     # (tiles, 16, 8) -> (tiles, lane, 4)
+        return torch.stack([D[:, _QG, 2 * _QT], D[:, _QG, 2 * _QT + 1],
+                            D[:, _QG + 8, 2 * _QT], D[:, _QG + 8, 2 * _QT + 1]], -1)
+
+    def dense(X, frag, b, nearest):         # X (tiles, lane, 4 blocks, 4 registers)
+        nt = frag.shape[1]
+        y = torch.zeros(tiles, 16, 8 * nt) + b
+        cross = torch.zeros(tiles, 16, 8 * nt)
+        for kk in range(4):
+            regs = X[:, :, kk][:, :, [0, 2, 1, 3]]
+            hi = ML.tf32_round(regs)
+            Ah, Al = a_matrix(hi), a_matrix(ML.tf32_round(regs - hi))
+            for j in range(nt):
+                Bh, Bl = b_matrix(frag[kk, j, :, 0], frag[kk, j, :, 1]), \
+                    b_matrix(frag[kk, j, :, 2], frag[kk, j, :, 3])
+                sl = slice(8 * j, 8 * j + 8)
+                cross[:, :, sl] = _toward_zero(cross[:, :, sl].double() + Al @ Bh)
+                cross[:, :, sl] = _toward_zero(cross[:, :, sl].double() + Ah @ Bl)
+                if nearest:
+                    y[:, :, sl] = y[:, :, sl] + _toward_zero(Ah @ Bh)
+                else:
+                    y[:, :, sl] = _toward_zero(y[:, :, sl].double() + Ah @ Bh)
+        D = y + cross
+        return torch.stack([c_registers(D[:, :, 8 * j:8 * j + 8]) for j in range(nt)], 2)
+
+    def ln_tanh(X, scale, shift):           # a row's 32 features: 8 per lane, 4 lanes
+        X = X.clone()
+        feat = 8 * torch.arange(4)[None, :, None] + 2 * _QT[:, None, None] + torch.arange(2)
+        for r in range(2):
+            v = X[..., 2 * r:2 * r + 2]
+            quad = lambda s: s.reshape(tiles, 8, 4).sum(2, keepdim=True).expand(-1, -1, 4) \
+                .reshape(tiles, 32)
+            mean = quad(v.sum((2, 3))) / 32
+            d = v - mean[:, :, None, None]
+            inv = torch.rsqrt(quad((d * d).sum((2, 3))) / 32 + 1e-5)
+            X[..., 2 * r:2 * r + 2] = torch.tanh(d * inv[:, :, None, None] * scale[feat]
+                                                 + shift[feat])
+        return X
+
+    X = torch.empty(tiles, 32, 4, 4)
+    for j in range(4):
+        for r in range(2):
+            for q in range(2):
+                f = 8 * j + 2 * _QT + q
+                x, y = p[:, _QG + 8 * r, 0], p[:, _QG + 8 * r, 1]
+                X[:, :, j, 2 * r + q] = (b0[f] + x * w0[0, f]) + y * w0[1, f]
+    X = ln_tanh(X, *ln[0])
+    X = torch.relu(dense(X, frags[0], bias[0], True))
+    X = ln_tanh(dense(X, frags[1], bias[1], False), *ln[1])
+    X = torch.relu(dense(X, frags[2], bias[2], True))
+    X = ln_tanh(dense(X, frags[3], bias[3], False), *ln[2])
+    Y = torch.relu(dense(X, frags[4], bias[4], True))[:, :, 0]
+    out = torch.empty(tiles, 16, 8)
+    out[:, _QG, 2 * _QT], out[:, _QG, 2 * _QT + 1], out[:, _QG + 8, 2 * _QT], \
+        out[:, _QG + 8, 2 * _QT + 1] = Y.unbind(-1)
+    return out.reshape(-1, 8)[:N, :E]
+
+
+@pytest.mark.parametrize("model", CKPTS)
+def test_mlp_kernel_arithmetic_emulated_matches_float64(model):
+    """The tensor-core design checked before the card: 10^5 points of each
+    shipped checkpoint through the emulation of its fragments, TF32 splits
+    and roundings are within the card tests' 1e-5 of float64, as close as
+    the plain float32 version is give or take 1e-6, and a wrong fragment
+    mapping would not be (the mapping read with b0 and b1 swapped)."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    from neupan_torch.models import load_checkpoint
+
+    enc = load_checkpoint(os.path.join(root, "examples/model", model, "model.npz"), "cpu")
+    pts = torch.from_numpy(np.random.default_rng(11).uniform(-10, 10, (100_000, 2))
+                           .astype(np.float32))
+    with torch.no_grad():
+        packed = ML.pack_weights(enc)
+        ref = ML.dune_mlp_plain(packed.double(), pts.double(), 4)
+        emu = float((_emulate_mlp_kernel(packed, pts, 4).double() - ref).abs().max())
+        plain = float((ML.dune_mlp_plain(packed, pts, 4).double() - ref).abs().max())
+        swapped = packed.clone()
+        frag = swapped[ML.PLAIN_SIZE + 424:].view(-1, 4)
+        frag[:, [0, 1, 2, 3]] = frag[:, [1, 0, 3, 2]].clone()
+        wrong = float((_emulate_mlp_kernel(swapped, pts[:2000], 4).double() - ref[:2000]).abs().max())
+    assert emu <= 1e-5 and emu <= plain + 1e-6, (emu, plain)
+    assert wrong > 1e-2
+
+
 @pytest.mark.parametrize("B,n", [(4, 30), (130, 18), (7, 33)])
 def test_sweep_plain_matches_f64_inverse(B, n):
     Mt = sweep_inputs(B, n)

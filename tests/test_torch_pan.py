@@ -106,7 +106,8 @@ def test_two_chained_steps_match_the_mlp_and_no_obstacle_goldens(variant, mlp_ke
 
 def test_spec_switches_follow_the_jax_auto_rules():
     """None = auto: the selection kernels with "exact" on either device,
-    the fused MLP never; only exact float32 precision is taken."""
+    the fused MLP on a card while no gradient is recorded and never on the
+    CPU; only exact float32 precision is taken."""
     robot = Robot.create(receding=4, kinematics="diff", length=1.6, width=2.0)
     nrmp = NRMPSpec(T=4, K=3, kinematics="diff", speed_bound=(8.0, 1.0), acce_bound=(0.8, 0.3))
     mk = lambda **kw: PANSpec(robot=robot, nrmp=nrmp, **kw)
@@ -115,6 +116,11 @@ def test_spec_switches_follow_the_jax_auto_rules():
     assert mk(dune_select="mlp", dune_kernel=True).use_dune_kernel()
     assert not mk(dune_kernel=False).use_dune_kernel()
     assert mk(dune_mlp_kernel=True).use_dune_mlp_kernel()
+    assert not mk().use_dune_mlp_kernel("cpu") and mk(dune_mlp_kernel=True).use_dune_mlp_kernel("cpu")
+    with torch.no_grad():
+        assert mk().use_dune_mlp_kernel("cuda") and mk(dune_select="mlp").use_dune_mlp_kernel("cuda:0")
+        assert not mk(dune_mlp_kernel=False).use_dune_mlp_kernel("cuda")
+    assert not mk().use_dune_mlp_kernel("cuda")      # a gradient is recorded
     assert mk().precision == "highest" and mk().dune_select == "exact"
     assert jpan.PANSpec.__dataclass_fields__["dune_select"].default == mk().dune_select
     with pytest.raises(ValueError, match="TF32"):
