@@ -49,6 +49,24 @@
      planner without obstacle slots (K=0) three; a CPU planner of each
      kind is fed the same states and points and must return the same
      actions to 5e-4 and the same min_distance to 1e-4, tick by tick.
+   * closed loop: the full examples/corridor/diff episode in the port's
+     Sim2D through ``examples/run_exp_torch.py:run_loop`` (planner and
+     world built from ``CONFIGS``, dicts equal to the YAML files): it must
+     arrive with no collision and 0 contact steps; ticks to arrival beside
+     the JAX package's record, host ms per tick (median, p90) and the
+     device's busy ms per tick (a profiled window of 20 ticks).
+   * parity: 15 closed-loop ticks on the card of corridor/acker,
+     corridor/omni, polygon_robot/diff, corridor_long/diff (T=30) and
+     dyna_obs/diff (moving obstacles, point velocities), each from a start
+     before the obstacles; a CPU planner is fed each tick's state, points,
+     velocities and the state the card's planner carried into it: actions
+     to 5e-4, min_distance to 1e-4, flags equal.
+   * long horizon: chained batched steps at T=30 with K=12 and at T=33
+     (B=64), where some QP stages take their plain routes by admission
+     (``ops/qp.py``: the ADMM operator at both, the inverses above n=96 at
+     T=33; the polish kernel takes k=90 and 99): the counters must show
+     exactly those routes, and opt_u is held against the CPU
+     (``LONG_HORIZON_MEDIAN``, ``_MAX``, ``_ABOVE``).
 
 Prints the kernels' JSON line, the paths' JSON line, the card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``; the
@@ -108,6 +126,32 @@ ENTRIES = {"select": ("select_flow_kernel",), "select_topk": ("select_kernel",),
            "mlp": ("dune_mlp_kernel",), "sweep": ("sweep_regs_kernel", "sweep_tiled_kernel"),
            "admm": ("admm_regs_kernel", "admm_smem_kernel"), "polish": ("box_candidate_kernel",)}
 FACADE_TICKS, NO_OBS_TICKS = 5, 3
+FLAGS = ("stop", "arrive", "collision")
+CLOSED_LOOP_MAX_TICKS, PROFILE_TICKS = 400, 20
+JAX_CORRIDOR_STEPS = 233   # the JAX package's corridor/diff episode (sweep_results.json)
+# config -> (the robot's start, the planner's waypoints from there): a few metres
+# before the obstacles, as tests/golden/torch/loop_*.npz start
+PARITY_CONFIGS = {
+    "corridor/acker": ((2.0, 20.0, 0.0), [[60, 20, 0]]),
+    "corridor/omni": ((4.0, 20.76, 0.188), [[10, 21.9, 0], [17, 20.5, 0], [23, 17.3, 0],
+                                            [30, 20, 0], [36, 22, 0], [43, 20, 0],
+                                            [50, 17.7, 0], [60, 20, 0]]),
+    "polygon_robot/diff": ((6.0, 0.0, 0.0), [[40, 0, 0]]),
+    "corridor_long/diff": ((2.0, 20.0, 0.0), [[60, 20, 0]]),
+    "dyna_obs/diff": ((8.0, 0.0, 0.0), [[40, 0, 0]]),
+}
+PARITY_TICKS = 15
+LONG_HORIZON_CASES = ((30, 12), (33, 10))   # (T, K)
+B_LONG, LONG_HORIZON_STEPS = 64, 2
+# opt_u card vs CPU at T >= 30, over the B_LONG x LONG_HORIZON_STEPS scenario-steps
+# of a case: the median to 2e-4, the largest to 3e-3, and at most 4 of them above
+# 5e-4. At these horizons the polish's tolerance-driven active set flips on
+# float32 rounding in a few scenarios whichever routes the QP takes
+# (scripts/exp_long_horizon_agreement.py, B=64: T=30 with every stage on its
+# kernel 7.8e-4 with 3 above 5e-4, T=30 K=12 2.5e-3 with 2, T=33 6.8e-4 with 4;
+# medians 5.7e-5 to 8.4e-5; T=10 at most 1.5e-4 and none above). The same
+# scenarios flip from run to run: the phase reports them.
+LONG_HORIZON_MEDIAN, LONG_HORIZON_MAX, LONG_HORIZON_ABOVE = 2e-4, 3e-3, 4
 GLUE = "dune._lam_and_distance"   # the profiler's range around that glue
 
 
@@ -279,15 +323,31 @@ def wrappers():
             "sweep": sweep_spd_inverse, "admm": admm_iterate, "polish": box_candidate}
 
 
+def twins():
+    """name -> the counter of a plain route that a QP stage takes on a card
+    where its kernel does not admit the shape (``ops/qp.py``'s admission
+    checks): the ADMM and polish twins, and the Cholesky inverse above n=96."""
+    from neupan_torch.ops.kernels.admm import admm_iterate_plain
+    from neupan_torch.ops.kernels.polish import box_candidate_plain
+    from neupan_torch.ops.kernels.sweep import cholesky_inverse
+
+    return {"admm_plain": admm_iterate_plain, "polish_plain": box_candidate_plain,
+            "cholesky": cholesky_inverse}
+
+
 def counted(torch, name, expected, run):
-    """Run one path with every launch count set to 0 just before and read
-    just after; fail unless each kernel was launched ``expected`` times."""
-    ws = wrappers()
+    """Run one path with every launch count (kernels and plain routes) set to
+    0 just before and read just after; fail unless each name in ``expected``
+    (a dict, or a function of the path's result giving one) was launched
+    that many times. A plain route not named must not have run."""
+    ws = {**wrappers(), **twins()}
     for w in ws.values():
         w.launches = 0
     result = run()
     torch.cuda.synchronize()
     launches = {k: w.launches for k, w in ws.items()}
+    expected = expected(result) if callable(expected) else expected
+    expected = {**{k: 0 for k in twins()}, **expected}
     for k, want in expected.items():
         check(launches[k] == want, f"{name} path: {k} launched {launches[k]} times, expected {want}")
     return result, launches
@@ -300,7 +360,6 @@ def kernel_phase(torch, dev):
     from neupan_torch.ops.kernels import polish as PO
     from neupan_torch.ops.kernels import select as SE
     from neupan_torch.ops.kernels import sweep as SW
-    from neupan_torch.ops.qp import _spd_inverse
     from neupan_torch.robot import Robot
 
     rng = np.random.default_rng(0)
@@ -500,7 +559,7 @@ def kernel_phase(torch, dev):
     Hs_t, As_t, rho_t = f(Hs), f(As), f(rho)
     M = Hs_t + 1e-6 * torch.eye(k, device=dev) + torch.bmm(
         (As_t * rho_t[:, :, None]).transpose(1, 2), As_t)
-    Minv = _spd_inverse(M)
+    Minv = SW.spd_inverse_any(M)
     ad_args = (Minv, As_t, f(rng.normal(size=(B, k))), f(ls), f(us), f(soft), rho_t,
                f(rng.normal(size=(B, k)) * 0.1), f(np.clip(rng.normal(size=(B, m)), ls, us)),
                f(rng.normal(size=(B, m)) * 0.1))
@@ -548,17 +607,43 @@ def kernel_phase(torch, dev):
         bound_B1=bound(*polish_work(1, k, na, refine)),
         plain_ms=time_ms(torch, lambda: PO.box_candidate_plain(*po_args, refine=refine), 5),
         library_ms=None, bound=bound(ops, nbytes))
+
+    # polish at T=33's shape (k=99, na=64, B=B_LONG: four 32-column chunks); above
+    # n=96 the plain version inverts by Cholesky, the kernel by its sweep
+    Bl, k, na = B_LONG, 99, 64
+    Qm = rng.normal(size=(Bl, k, k))
+    Hr = Qm @ np.swapaxes(Qm, 1, 2) / k + np.eye(k)
+    DAn = rng.normal(size=(Bl, na, k)) * 0.3
+    d = (rng.uniform(size=(Bl, na)) < 0.6).astype(np.float64)
+    DAn = DAn / np.maximum(np.linalg.norm(DAn, axis=2, keepdims=True), 1e-8) * d[:, :, None]
+    fix = (rng.uniform(size=(Bl, k)) < 0.4).astype(np.float64)
+    po_args = (f(Hr), f(Hr - 1e-6 * np.eye(k)), f(DAn), f(rng.normal(size=(Bl, k))),
+               f(rng.normal(size=(Bl, k))), f(rng.normal(size=(Bl, na)) * d),
+               f(rng.normal(size=(Bl, k)) * fix), f(fix), f(d))
+    out, outp = PO.box_candidate(*po_args, refine=refine), PO.box_candidate_plain(
+        *po_args, refine=refine)
+    torch.cuda.synchronize()
+    rel = max(float((o - p).abs().max() / p.abs().max().clamp(min=1e-9))
+              for o, p in zip(out, outp))
+    check(rel < 2e-4, f"polish k={k}: relative error {rel} against the plain version")
+    res["polish_k99"] = dict(
+        shape=f"B={Bl} k={k} na={na} refine={refine}", rel_err=rel,
+        max_abs_err=max(float((o - p).abs().max()) for o, p in zip(out, outp)),
+        ms=graph_ms(torch, lambda: PO.box_candidate(*po_args, refine=refine)),
+        plain_ms=time_ms(torch, lambda: PO.box_candidate_plain(*po_args, refine=refine), 5),
+        bound_ms=bound(*polish_work(Bl, k, na, refine))[0])
     return res
 
 
-def flagship(torch, dev, B, seed=0, **spec_kw):
-    """bench.py's flagship spec and batch, built by the port itself."""
+def flagship(torch, dev, B, seed=0, T=10, K=10, **spec_kw):
+    """bench.py's flagship spec and batch, built by the port itself (at
+    another horizon T or obstacle count K where given)."""
     from neupan_torch.models import load_checkpoint
     from neupan_torch.ops.nrmp import AdjustParams, NRMPSpec
     from neupan_torch.ops.pan import PANSpec
     from neupan_torch.robot import Robot
 
-    T, P, K = 10, 2048, 10
+    P = 2048
     robot = Robot.create(receding=T, step_time=0.1, kinematics="diff", max_speed=[8, 1],
                          max_acce=[8, 3], length=1.6, width=2.0)
     nrmp = NRMPSpec(T=T, K=K, kinematics="diff", speed_bound=tuple(robot.speed_bound[:, 0]),
@@ -581,8 +666,8 @@ def flagship(torch, dev, B, seed=0, **spec_kw):
     return spec, encoder, robot.tensors(dev), adjust, data
 
 
-def run_chain(torch, spec, encoder, geom, adjust, data, sl=slice(None), dev=None):
-    """STEPS chained planner steps; returns the outputs of each step."""
+def run_chain(torch, spec, encoder, geom, adjust, data, sl=slice(None), dev=None, steps=STEPS):
+    """``steps`` chained planner steps; returns the outputs of each step."""
     from neupan_torch.parallel import batched_init_state, batched_planner_step
 
     mv = lambda t: t[sl].to(dev)
@@ -590,7 +675,7 @@ def run_chain(torch, spec, encoder, geom, adjust, data, sl=slice(None), dev=None
     B = nom_s.shape[0]
     state = batched_init_state(spec, B, dev)
     outs = []
-    for i in range(STEPS):
+    for i in range(steps):
         out = batched_planner_step(spec, encoder, *geom, adjust, nom_s, nom_u,
                                    mv(data["ref_s"]), mv(data["ref_us"]), mv(data["pts"][i]),
                                    mv(data["vels"]), mv(data["mask"]), state)
@@ -712,15 +797,148 @@ def dune_path(torch, dev):
                       "frames": int(apart.numel()), "cpu_scenarios": B_CPU}
 
 
-CORRIDOR_KWARGS = dict(
-    receding=10, step_time=0.1, ref_speed=4.0, collision_threshold=0.1,
-    robot_kwargs=dict(kinematics="diff", max_speed=[8, 1], max_acce=[8, 3], length=1.6, width=2.0),
-    ipath_kwargs=dict(waypoints=[[0, 20, 0], [60, 20, 0]], curve_style="line", min_radius=4.0,
-                      loop=False, arrive_threshold=0.1, close_threshold=0.1, ind_range=10,
-                      arrive_index_threshold=1),
-    pan_kwargs=dict(iter_num=2, dune_max_num=100, nrmp_max_num=10, iter_threshold=0.1,
-                    dune_checkpoint="examples/model/diff_robot_default/model.npz"),
-    adjust_kwargs=dict(q_s=1.0, p_u=1.0, eta=15.0, d_max=1.0, d_min=0.25))
+# examples/<name>/{planner,env}.yaml as dicts: the card's machine is not promised
+# pyyaml. tests/test_torch_loop.py holds each dict equal to yaml.safe_load of its file.
+_LIDAR_HALF = {"type": "lidar2d", "range_min": 0, "range_max": 10, "angle_range": 3.1415926,
+               "number": 100}
+_CORRIDOR_WALLS = [{"name": "rectangle", "length": 70, "width": 2}] * 2 + [
+    {"name": "rectangle", "length": 5, "width": 2}, {"name": "rectangle", "length": 5, "width": 2},
+    {"name": "rectangle", "length": 6, "width": 2}, {"name": "rectangle", "length": 5, "width": 2}]
+
+
+def _corridor_env(kinematics, shape, goal, goal_threshold, lidar, states):
+    return {"world": {"height": 23, "width": 70, "step_time": 0.1},
+            "robot": [{"kinematics": {"name": kinematics}, "shape": shape,
+                       "state": [-5, 20, 0], "goal": goal, "goal_threshold": goal_threshold,
+                       "sensors": [lidar]}],
+            "obstacle": [{"number": 6, "shape": _CORRIDOR_WALLS, "state": states}]}
+
+
+def _open_env(kinematics, shape, obstacles):
+    return {"world": {"height": 20, "width": 50, "step_time": 0.1},
+            "robot": [{"kinematics": {"name": kinematics}, "shape": shape, "state": [0, 0, 0],
+                       "goal": [40, 0, 0], "goal_threshold": 0.5, "sensors": [_LIDAR_HALF]}],
+            "obstacle": [obstacles]}
+
+
+_RECT_16_20 = {"name": "rectangle", "length": 1.6, "width": 2.0}
+_CORRIDOR_DIFF_PLANNER = {
+    "receding": 10, "step_time": 0.1, "ref_speed": 4, "time_print": False,
+    "collision_threshold": 0.1,
+    "robot": {"kinematics": "diff", "max_speed": [8, 1], "max_acce": [8, 3], "length": 1.6,
+              "width": 2.0},
+    "ipath": {"waypoints": [[0, 20, 0], [60, 20, 0]], "curve_style": "line", "min_radius": 4.0,
+              "loop": False, "arrive_threshold": 0.1, "close_threshold": 0.1, "ind_range": 10,
+              "arrive_index_threshold": 1},
+    "pan": {"iter_num": 2, "dune_max_num": 100, "nrmp_max_num": 10, "iter_threshold": 0.1,
+            "dune_checkpoint": "examples/model/diff_robot_default/model.npz"},
+    "adjust": {"q_s": 1.0, "p_u": 1.0, "eta": 15.0, "d_max": 1.0, "d_min": 0.25}}
+_CORRIDOR_DIFF_ENV = _corridor_env(
+    "diff", _RECT_16_20, [40, 40, 0], 0.3, _LIDAR_HALF,
+    [[30, 25, 0], [30, 15, 0], [10, 18.5, 1.57], [27, 22.4, 1.57], [36, 17, 2.1], [50, 22, 4.3]])
+_PAN_DIFF = {"iter_num": 2, "dune_max_num": 100, "nrmp_max_num": 10, "iter_threshold": 0.1,
+             "dune_checkpoint": "examples/model/diff_robot_default/model.npz"}
+_OPEN_IPATH = {"waypoints": [[0, 0, 0], [40, 0, 0]], "curve_style": "line", "loop": False}
+CONFIGS = {
+    "corridor/diff": {"planner": _CORRIDOR_DIFF_PLANNER, "env": _CORRIDOR_DIFF_ENV},
+    "corridor/acker": {
+        "planner": {
+            "receding": 10, "step_time": 0.2, "ref_speed": 4, "collision_threshold": 0.1,
+            "robot": {"kinematics": "acker", "max_speed": [8, 1.0], "max_acce": [8, 0.5],
+                      "wheelbase": 3.0, "length": 4.6, "width": 1.6},
+            "ipath": {"waypoints": [[0, 20, 0], [60, 20, 0]], "curve_style": "dubins",
+                      "min_radius": 3.0, "loop": False},
+            "pan": {"iter_num": 2, "dune_max_num": 100, "nrmp_max_num": 10, "iter_threshold": 0.1,
+                    "dune_checkpoint": "examples/model/acker_robot_default/model.npz"},
+            "adjust": {"q_s": 1.0, "p_u": 1.0, "eta": 15.0, "d_max": 1.0, "d_min": 0.1,
+                       "bk": 1.0}},
+        "env": _corridor_env(
+            "acker", {"name": "rectangle", "length": 4.6, "width": 1.6, "wheelbase": 3.0},
+            [55, 20, 0], 0.5, _LIDAR_HALF,
+            [[30, 25.5, 0], [30, 14.5, 0], [10, 18, 1.57], [23, 22, 1.57], [36, 16.5, 2.1],
+             [50, 22.5, 4.3]])},
+    "corridor/omni": {
+        "planner": {
+            "receding": 10, "step_time": 0.1, "ref_speed": 3, "collision_threshold": 0.1,
+            "robot": {"kinematics": "omni", "max_speed": [8, 6.28], "max_acce": [3, 3],
+                      "length": 1.6, "width": 2.0},
+            "ipath": {"waypoints": [[0, 20, 0], [10, 21.9, 0], [17, 20.5, 0], [23, 17.3, 0],
+                                    [30, 20, 0], [36, 22, 0], [43, 20, 0], [50, 17.7, 0],
+                                    [60, 20, 0]],
+                      "curve_style": "line", "loop": False},
+            "pan": _PAN_DIFF,
+            "adjust": {"q_s": 1.0, "p_u": 1.0, "eta": 15.0, "d_max": 0.5, "d_min": 0.1}},
+        "env": _corridor_env(
+            "omni", _RECT_16_20, [40, 40, 0], 0.3, dict(_LIDAR_HALF, angle_range=6.28),
+            [[30, 25, 0], [30, 15, 0], [10, 18, 1.57], [23, 22, 1.57], [36, 17, 2.1],
+             [50, 22, 4.3]])},
+    "polygon_robot/diff": {
+        "planner": {
+            "receding": 10, "step_time": 0.1, "ref_speed": 3, "collision_threshold": 0.1,
+            "robot": {"kinematics": "diff", "max_speed": [8, 3], "max_acce": [8, 3],
+                      "vertices": [[-0.8, -1.0], [-1.8, 1.0], [1.8, 1.0], [0.8, -1.0]]},
+            "ipath": _OPEN_IPATH,
+            "pan": dict(_PAN_DIFF, dune_checkpoint="examples/model/polygon_robot/model.npz"),
+            "adjust": {"q_s": 1.0, "p_u": 1.0, "eta": 10.0, "d_max": 1.0, "d_min": 0.1}},
+        "env": _open_env("diff", {"name": "polygon"}, {
+            "number": 3,
+            "shape": [{"name": "circle", "radius": 1.0},
+                      {"name": "rectangle", "length": 3, "width": 1.5},
+                      {"name": "circle", "radius": 0.8}],
+            "state": [[12, 1.5, 0], [22, -1.8, 0.5], [32, 1.2, 0]]})},
+    "corridor_long/diff": {"planner": dict(_CORRIDOR_DIFF_PLANNER, receding=30),
+                           "env": _CORRIDOR_DIFF_ENV},
+    "dyna_obs/diff": {
+        "planner": {
+            "receding": 10, "step_time": 0.1, "ref_speed": 3, "collision_threshold": 0.1,
+            "robot": {"kinematics": "diff", "max_speed": [8, 1], "max_acce": [8, 3],
+                      "length": 1.6, "width": 2.0},
+            "ipath": _OPEN_IPATH, "pan": _PAN_DIFF,
+            "adjust": {"q_s": 1.0, "p_u": 1.0, "eta": 10.0, "d_max": 1.0, "d_min": 0.1}},
+        "env": _open_env("diff", _RECT_16_20, {
+            "number": 3,
+            "shape": [{"name": "circle", "radius": 0.8}, {"name": "circle", "radius": 0.8},
+                      {"name": "rectangle", "length": 2, "width": 1.5}],
+            "state": [[15, 4, 0], [25, -5, 0], [35, 5, 0]],
+            "velocity": [[0.0, -0.4], [0.0, 0.5], [-0.3, -0.3]]})},
+}
+
+
+def against_cpu(name, kwargs, trace):
+    """Feed a CPU planner built from ``kwargs`` the card's states, points and
+    velocities tick by tick (each ``trace`` entry: state, points, velocities,
+    action, min_distance, flags, and where it holds one, ``carry``: what the
+    card's planner carried into the tick, which the CPU planner then starts
+    the tick from): actions must agree to 5e-4, min_distance to 1e-4, the
+    stop/arrive/collision flags exactly. Returns the largest action and
+    min_distance differences."""
+    from neupan_torch import NeuPan
+    from neupan_torch.ops.pan import PANState
+
+    on_cpu = NeuPan(**kwargs, device="cpu")
+    d_act = d_min = 0.0
+    for i, t in enumerate(trace):
+        if "carry" in t:
+            on_cpu.pan_state = PANState(*t["carry"][0])
+            on_cpu.cur_vel_array = t["carry"][1].copy()
+        action_c, info_c = on_cpu(t["state"], t["points"], t["velocities"])
+        d_a = float(np.abs(t["action"] - action_c).max())
+        d_m = abs(t["min_distance"] - on_cpu.min_distance)
+        check(d_a <= 5e-4, f"{name}, tick {i}: action card vs CPU differ by {d_a} > 5e-4")
+        check(d_m <= 1e-4, f"{name}, tick {i}: min_distance card vs CPU differ by {d_m} > 1e-4")
+        check(t["flags"] == tuple(bool(info_c[k]) for k in FLAGS),
+              f"{name}, tick {i}: flags card {t['flags']} vs CPU differ")
+        d_act, d_min = max(d_act, d_a), max(d_min, d_m)
+    return d_act, d_min
+
+
+def tick(planner, state, points, velocities=None):
+    """One planner tick, recorded for ``against_cpu``."""
+    action, info = planner(state, points, velocities)
+    check(action.shape == (2, 1) and bool(np.isfinite(action).all()),
+          f"tick returned {action!r}")
+    return dict(state=state, points=points, velocities=velocities, action=action.copy(),
+                min_distance=planner.min_distance, flags=tuple(bool(info[k]) for k in FLAGS))
 
 
 def facade_path(torch):
@@ -733,54 +951,39 @@ def facade_path(torch):
     states and points tick by tick: actions must agree to 5e-4 and
     min_distance to 1e-4."""
     from neupan_torch import NeuPan
+    from neupan_torch.config import planner_kwargs
 
     def drive(planner, ticks, start, points_of):
         state, trace, times = np.array(start, dtype=np.float64).reshape(3, 1), [], []
         for i in range(ticks):
             t0 = time.perf_counter()
-            action, info = planner(state, points_of(i))
+            trace.append(tick(planner, state, points_of(i)))
             times.append((time.perf_counter() - t0) * 1e3)
-            check(action.shape == (2, 1) and bool(np.isfinite(action).all()),
-                  f"facade: tick {i} returned {action!r}")
-            check(not info["arrive"] and not info["stop"], f"facade: tick {i} stopped")
+            check(not any(trace[-1]["flags"][:2]), f"facade: tick {i} stopped")
             for key in ("state_tensor", "vel_tensor", "ref_state_tensor"):
-                check(info[key].is_cuda, f"facade: info[{key!r}] is not on the card")
-            trace.append((state, action.copy(), planner.min_distance))
-            v, w, th = action[0, 0], action[1, 0], state[2, 0]
+                check(planner.info[key].is_cuda, f"facade: info[{key!r}] is not on the card")
+            v, w, th = trace[-1]["action"][0, 0], trace[-1]["action"][1, 0], state[2, 0]
             state = state + planner.dt * np.array([[v * np.cos(th)], [v * np.sin(th)], [w]])
         return trace, times
-
-    def against_cpu(name, kwargs, trace, points_of):
-        """Largest action and min_distance difference from a CPU planner fed
-        the card's states and points."""
-        on_cpu = NeuPan(**kwargs, device="cpu")
-        d_act = d_min = 0.0
-        for i, (state, action, min_distance) in enumerate(trace):
-            action_c, _ = on_cpu(state, points_of(i))
-            d_a = float(np.abs(action - action_c).max())
-            d_m = abs(min_distance - on_cpu.min_distance)
-            check(d_a <= 5e-4, f"{name}, tick {i}: action card vs CPU differ by {d_a} > 5e-4")
-            check(d_m <= 1e-4, f"{name}, tick {i}: min_distance card vs CPU differ by {d_m} > 1e-4")
-            d_act, d_min = max(d_act, d_a), max(d_min, d_m)
-        return d_act, d_min
 
     rng = np.random.default_rng(0)
     walls = [np.stack([rng.uniform(0.0, 14.0, 90),
                        20.0 + rng.choice([-1.0, 1.0], 90) * rng.uniform(1.8, 4.0, 90)])
              for _ in range(FACADE_TICKS)]
-    planner = NeuPan(**CORRIDOR_KWARGS)           # no device named: the card
+    corridor_kwargs = planner_kwargs(CONFIGS["corridor/diff"]["planner"])
+    planner = NeuPan(**corridor_kwargs)           # no device named: the card
     check(planner.G.is_cuda and all(t.is_cuda for t in planner.pan_state)
           and next(planner.encoder.parameters()).is_cuda, "facade: planner state not on the card")
     (trace, times), launches = counted(
         torch, "facade", {k: v * FACADE_TICKS for k, v in PER_STEP.items()},
         lambda: drive(planner, FACADE_TICKS, [0.0, 20.0, 0.0], lambda i: walls[i]))
-    actions = [a[:, 0].tolist() for _, a, _ in trace]
+    actions = [t["action"][:, 0].tolist() for t in trace]
     check(actions[-1][0] > 0.5 and planner.min_distance < 10.0,
           f"facade: the planner does not drive ({actions[-1]}, min_distance {planner.min_distance})")
     check(planner.info["distance_tensor"].is_cuda, "facade: distance_tensor is not on the card")
-    d_act, d_min = against_cpu("facade", CORRIDOR_KWARGS, trace, lambda i: walls[i])
+    d_act, d_min = against_cpu("facade", corridor_kwargs, trace)
 
-    no_obs_kwargs = dict(CORRIDOR_KWARGS, ipath_kwargs=dict(waypoints=[[0, 0, 0], [40, 0, 0]],
+    no_obs_kwargs = dict(corridor_kwargs, ipath_kwargs=dict(waypoints=[[0, 0, 0], [40, 0, 0]],
                                                             curve_style="line", loop=False),
                          pan_kwargs=dict(iter_num=2, dune_max_num=0, nrmp_max_num=0,
                                          iter_threshold=0.1),
@@ -789,10 +992,10 @@ def facade_path(torch):
     (trace0, times0), launches0 = counted(
         torch, "no-obstacle facade", {k: v * NO_OBS_TICKS for k, v in PER_STEP_NO_OBS.items()},
         lambda: drive(follower, NO_OBS_TICKS, [0.0, 0.0, 0.0], lambda i: None))
-    actions0 = [a[:, 0].tolist() for _, a, _ in trace0]
+    actions0 = [t["action"][:, 0].tolist() for t in trace0]
     check(follower.info["distance_tensor"] is None and actions0[-1][0] > 0.5,
           f"no-obstacle facade: unexpected output {actions0[-1]}")
-    d_act0, d_min0 = against_cpu("no-obstacle facade", no_obs_kwargs, trace0, lambda i: None)
+    d_act0, d_min0 = against_cpu("no-obstacle facade", no_obs_kwargs, trace0)
     for k in launches:
         launches[k] += launches0[k]
     # the first tick of each planner pays one-time set-up (library load, cuBLAS handles)
@@ -802,6 +1005,178 @@ def facade_path(torch):
                       "action_card_vs_cpu_max": d_act, "min_distance_card_vs_cpu_max": d_min,
                       "no_obs_ticks": NO_OBS_TICKS, "no_obs_ms_per_tick": float(np.mean(times0[1:])),
                       "no_obs_actions": actions0, "no_obs_action_card_vs_cpu_max": d_act0}
+
+
+def sim_planner(name, start=None, waypoints=None):
+    """The port's planner (on the card) and Sim2D world of CONFIGS[name],
+    from the dicts; with ``start``, the robot starts there and the planner's
+    path runs from it through ``waypoints``."""
+    from neupan_torch import NeuPan
+    from neupan_torch.config import planner_kwargs
+    from neupan_torch.sim.env_loader import build_env
+
+    cfg = CONFIGS[name]["planner"]
+    if waypoints is not None:
+        cfg = dict(cfg, ipath=dict(cfg["ipath"], waypoints=waypoints))
+    kwargs = planner_kwargs(cfg)
+    planner = NeuPan(**kwargs)
+    env = build_env(CONFIGS[name]["env"], planner.robot)
+    if start is not None:
+        env.state = np.asarray(start, dtype=np.float64).reshape(3, 1)
+    return planner, env, kwargs
+
+
+def closed_loop_path(torch):
+    """The full corridor/diff episode on the card: the port's NeuPan in the
+    port's Sim2D through ``examples/run_exp_torch.py:run_loop``, up to
+    CLOSED_LOOP_MAX_TICKS ticks. It must arrive without a collision and
+    with 0 contact steps; its tick count is printed beside the JAX
+    package's record (sweep_results.json), not gated: arrival is chaotic in
+    1e-3 action changes. Host ms per planner tick (median, p90) over the
+    episode, and the device's busy ms per tick from a profiled window of
+    PROFILE_TICKS ticks of a fresh episode."""
+    from neupan_torch import native
+
+    sys.path.insert(0, os.path.join(ROOT, "examples"))
+    from run_exp_torch import run_loop
+
+    planner, env, _ = sim_planner("corridor/diff")
+    forward, times = planner.forward, []
+
+    def timed(*args):
+        t0 = time.perf_counter()
+        out = forward(*args)
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    planner.forward = timed
+    # every tick but the last (the arrival check returns before the step) runs one step
+    result, launches = counted(
+        torch, "closed loop", lambda r: {k: v * r["steps"] for k, v in PER_STEP.items()},
+        lambda: run_loop(planner, env, False, CLOSED_LOOP_MAX_TICKS))
+    check(result["arrived"] and not result["collided"] and result["contacts"] == 0,
+          f"closed loop: corridor/diff did not arrive cleanly: {result}")
+    steady = np.asarray(times[1:-1])     # without the set-up tick and the arrival tick
+
+    planner, env, _ = sim_planner("corridor/diff")
+    busy_us, n_kernels = profile_kernels(
+        torch, lambda: run_loop(planner, env, False, PROFILE_TICKS))
+    return launches, {
+        **result, "jax_steps": JAX_CORRIDOR_STEPS, "lidar": "native" if native.available() else "numpy",
+        "ms_per_tick_median": float(np.median(steady)),
+        "ms_per_tick_p90": float(np.percentile(steady, 90)), "first_tick_ms": times[0],
+        "device_busy_ms_per_tick": busy_us / 1e3 / PROFILE_TICKS,
+        "device_kernels_per_tick": n_kernels / PROFILE_TICKS, "profiled_ticks": PROFILE_TICKS}
+
+
+def parity_path(torch):
+    """PARITY_TICKS closed-loop ticks on the card of each of PARITY_CONFIGS
+    (acker, omni, the trapezoid robot, T=30, moving obstacles with point
+    velocities), in the port's Sim2D from a start before the obstacles; a
+    CPU planner of each is fed, tick by tick, the card's states, points and
+    velocities and what the card's planner carried into the tick
+    (``against_cpu``): carrying its own warm start instead compounds float32
+    differences (tests/test_torch_loop.py)."""
+    launches, report = {}, {}
+    for name, (start, waypoints) in PARITY_CONFIGS.items():
+        planner, env, kwargs = sim_planner(name, start, waypoints)
+        point_vel = name.startswith("dyna")
+
+        def drive():
+            trace = []
+            for _ in range(PARITY_TICKS):
+                state, scan = env.get_robot_state(), env.get_lidar_scan()
+                if point_vel:
+                    pts, vels = planner.scan_to_point_velocity(state, scan)
+                else:
+                    pts, vels = planner.scan_to_point(state, scan), None
+                carry = (tuple(t.cpu() for t in planner.pan_state), planner.cur_vel_array.copy())
+                trace.append(dict(tick(planner, state, pts, vels), carry=carry))
+                check(not env.collided, f"{name}: collision")
+                env.step(trace[-1]["action"])
+            return trace
+
+        trace, counts = counted(torch, name, {k: v * PARITY_TICKS for k, v in PER_STEP.items()},
+                                drive)
+        d_act, d_min = against_cpu(name, kwargs, trace)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        report[name] = {"ticks": PARITY_TICKS, "action_card_vs_cpu_max": d_act,
+                        "min_distance_card_vs_cpu_max": d_min,
+                        "min_distance_last": trace[-1]["min_distance"],
+                        "points_last": 0 if trace[-1]["points"] is None
+                        else int(trace[-1]["points"].shape[1])}
+    return launches, report
+
+
+def long_horizon_path(torch, dev):
+    """The shapes that take the plain routes on the card (fault F1 of the
+    port): LONG_HORIZON_STEPS chained batched steps at T=30, K=12 (the
+    ADMM operator does not fit one block: its plain version) and at T=33
+    (n=99 > 96: the Cholesky inverses, and the polish's plain version),
+    B=B_LONG, against the same steps on the CPU (opt_u: the median over
+    scenarios to LONG_HORIZON_MEDIAN, the largest to LONG_HORIZON_MAX, at
+    most LONG_HORIZON_ABOVE scenario-steps above 5e-4, which are reported).
+    The route of each QP stage is set by ``ops/qp.py``'s admission checks;
+    the counters must show exactly those routes."""
+    from neupan_torch.ops.kernels.admm import admm_fits
+    from neupan_torch.ops.kernels.polish import polish_fits
+    from neupan_torch.ops.kernels.sweep import MAX_N
+
+    launches, report = {}, {}
+    for T, K in LONG_HORIZON_CASES:
+        spec, encoder, geom, adjust, data = flagship(torch, dev, B_LONG, T=T, K=K)
+        nrmp, k = spec.nrmp, 3 * T
+        n_eq, n_acc = nrmp.r_acc, nrmp.r_spd - nrmp.r_acc
+        qps = 2 * LONG_HORIZON_STEPS          # two PAN iterations per step
+        inv_small = (n_eq <= MAX_N) + 2 * (k <= MAX_N)   # Gram + two ADMM phases per QP
+        admm_k = 2 * admm_fits(k, nrmp.m - n_eq)
+        polish_k = 5 * polish_fits(k, n_acc)
+        # a plain polish candidate inverts Hm (k) and S (na) itself, by Cholesky above 96
+        polish_plain = qps * (5 - polish_k)
+        want = {"select": 2 * LONG_HORIZON_STEPS, "select_topk": 0, "mlp": 2 * LONG_HORIZON_STEPS,
+                "sweep": qps * inv_small,
+                "cholesky": qps * (3 - inv_small) + polish_plain * ((k > MAX_N) + (n_acc > MAX_N)),
+                "admm": qps * admm_k, "admm_plain": qps * (2 - admm_k),
+                "polish": qps * polish_k, "polish_plain": polish_plain}
+        name = f"T={T} K={K}"
+        outs, counts = counted(torch, name, want, lambda: run_chain(
+            torch, spec, encoder, geom, adjust, data, dev=dev, steps=LONG_HORIZON_STEPS))
+        outs_cpu = run_chain(torch, spec, *to_cpu(encoder, geom, adjust), data,
+                             dev=torch.device("cpu"), steps=LONG_HORIZON_STEPS)
+        du, du_median, above = 0.0, 0.0, []
+        for i, (o, oc) in enumerate(zip(outs, outs_cpu)):
+            check(bool(torch.isfinite(o.opt_u).all()), f"{name}: non-finite opt_u on the card")
+            d = (o.opt_u.cpu() - oc.opt_u).abs().amax(dim=(1, 2))
+            check(float(d.median()) <= LONG_HORIZON_MEDIAN and float(d.max()) <= LONG_HORIZON_MAX,
+                  f"{name}, step {i}: opt_u card vs CPU differ by {float(d.max())} (median "
+                  f"{float(d.median())})")
+            du, du_median = max(du, float(d.max())), max(du_median, float(d.median()))
+            above += [[i, int(b), float(d[b])] for b in torch.nonzero(d > 5e-4)[:, 0]]
+        check(len(above) <= LONG_HORIZON_ABOVE,
+              f"{name}: {len(above)} scenario-steps above 5e-4 card vs CPU: {above}")
+        for key, v in counts.items():
+            launches[key] = launches.get(key, 0) + v
+        report[name] = {"B": B_LONG, "steps": LONG_HORIZON_STEPS, "k": k, "m": nrmp.m - n_eq,
+                        "n_eq": n_eq, "na": n_acc, "opt_u_card_vs_cpu_max": du,
+                        "opt_u_card_vs_cpu_median": du_median,
+                        "scenario_steps_above_5e-4": len(above), "above_5e-4": above,
+                        "routes": {key: counts[key] for key in want if key not in
+                                   ("select", "select_topk", "mlp")}}
+        print(f"long horizon {name}: routes {report[name]['routes']}", file=sys.stderr)
+    return launches, report
+
+
+def profile_kernels(torch, run):
+    """Device kernel time (us) and kernel count over one call of ``run``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return sum(e.time_range.elapsed_us() for e in kernels), len(kernels)
 
 
 def profile_step(torch, spec, encoder, geom, adjust, data):
@@ -890,6 +1265,12 @@ def main() -> None:
     by_path["mlp"], report["step_mlp"] = chain_path(
         torch, dev, "mlp", PER_STEP_MLP, 5, False, dune_select="mlp", dune_mlp_kernel=True)
     by_path["facade"], report["facade"] = facade_path(torch)
+    by_path["closed_loop"], report["closed_loop"] = closed_loop_path(torch)
+    print(f"[closed loop] {json.dumps(report['closed_loop'])}", file=sys.stderr)
+    by_path["parity"], report["closed_loop_card_vs_cpu"] = parity_path(torch)
+    print(f"[parity] {json.dumps(report['closed_loop_card_vs_cpu'])}", file=sys.stderr)
+    by_path["long_horizon"], report["long_horizon"] = long_horizon_path(torch, dev)
+    card = card_name_and_power()
 
     entries = []
     for name in KERNELS:
@@ -905,14 +1286,17 @@ def main() -> None:
             "ptxas": {e: u for e, u in usage.items() if e.split("<")[0] in ENTRIES[name]}})
         if "ms_B1" in r:
             entries[-1].update(ms_B1=r["ms_B1"], bound_ms_B1=r["bound_B1"][0])
+        if name == "polish":
+            entries[-1]["at_T33"] = kern["polish_k99"]
         if "bound_cuda_core" in r:
             entries[-1].update(bound_design="tensor_core",
                                bound_ms_cuda_core=r["bound_cuda_core"][0])
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"build_s": build_s, "sweep_by_n": kern["sweep_by_n"],
                       "select_refill": kern["select_refill"],
-                      "mlp_by_n": kern["mlp_by_n"], "mlp_acker": kern["mlp_acker"], **report}))
-    print(card_name_and_power())
+                      "mlp_by_n": kern["mlp_by_n"], "mlp_acker": kern["mlp_acker"], **report,
+                      "card": card}))
+    print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -6,8 +6,8 @@ plus top-level MPC keys (receding, step_time, ref_speed, device, time_print,
 collision_threshold). Call-site kwargs override file values.
 
 ``yaml`` is imported inside ``load_planner_config``: only
-``NeuPan.init_from_yaml`` needs it, and a planner built from kwargs runs on
-a machine without pyyaml.
+``NeuPan.init_from_yaml`` needs it, and a planner built from kwargs (or from
+a dict through ``planner_kwargs``) runs on a machine without pyyaml.
 """
 
 from __future__ import annotations
@@ -23,8 +23,14 @@ def load_planner_config(yaml_file: str, **overrides) -> Dict[str, Any]:
     abs_path = file_check(yaml_file)
     with open(abs_path, "r") as f:
         config = yaml.safe_load(f) or {}
-    config.update(overrides)
+    return planner_kwargs(config, **overrides)
 
+
+def planner_kwargs(config: Dict[str, Any], **overrides) -> Dict[str, Any]:
+    """``NeuPan`` keyword arguments from a parsed planner YAML (a dict with
+    the five sections and the top-level keys); ``overrides`` replace keys of
+    the dict before the sections are renamed."""
+    config = dict(config, **overrides)
     config["robot_kwargs"] = config.pop("robot", dict()) or dict()
     config["ipath_kwargs"] = config.pop("ipath", dict()) or dict()
     config["pan_kwargs"] = config.pop("pan", dict()) or dict()

@@ -10,7 +10,7 @@
 // Bound on the H100: neither bytes nor operations (~0.2 MFLOP and ~10 KB
 // per scenario at k=30, na=18) but the chain of dependent steps: k + na
 // sweep pivots, then 6 + 9 refine dependent matrix-vector products.
-// Layout (4 warps, NC = 32-column chunks of max(k, na), 1..3):
+// Layout (4 warps, NC = 32-column chunks of max(k, na), 1..4):
 //   * the inverses: thread (warp w, lane c) holds rows w, w+4, ... of
 //     columns c, c+32, ... in registers (8 NC x NC values). Sweeping pivot
 //     j reads row j from a double-buffered shared row (its column j by
@@ -31,7 +31,10 @@
 //     them in the same order. 69 barriers for the 8 solves at refine=7;
 //     one warp alone, barrier-free, took 2.3x as long per refinement pass.
 // Registers (nvcc -Xptxas -v, sm_90a): 91 at NC=1, no spills, so the ~4
-// blocks per SM that B=512 puts there are all resident at once.
+// blocks per SM that B=512 puts there are all resident at once. NC=4 (the
+// T=33 horizon, k=99) holds 128 values of each inverse per thread. Above
+// n=96 the plain version inverts by Cholesky; the kernel keeps the sweep, as
+// the TPU kernel does at every n.
 // No tensor cores: every product is a matrix times one vector, and the
 // port keeps float32 (TF32 off).
 #include "common.cuh"
@@ -372,7 +375,8 @@ extern "C" int box_candidate_launch(
     const void* g2n, const void* b_box, const void* fix, const void* d, void* w, void* yn,
     int B, int k, int na, int refine, void* stream) {
   const int nm = k > na ? k : na;
-  const int nc = nm <= 32 ? 1 : nm <= 64 ? 2 : 3;
+  if (nm > 128) return static_cast<int>(cudaErrorInvalidValue);
+  const int nc = (nm + 31) / 32;
   const size_t smem = polish_smem_bytes(k, na, nc);
   auto run = [&](auto kernel) {
     cudaError_t err = neupan_allow_smem(kernel, smem);
@@ -388,5 +392,6 @@ extern "C" int box_candidate_launch(
   };
   if (nc == 1) return run(box_candidate_kernel<1>);
   if (nc == 2) return run(box_candidate_kernel<2>);
-  return run(box_candidate_kernel<3>);
+  if (nc == 3) return run(box_candidate_kernel<3>);
+  return run(box_candidate_kernel<4>);
 }

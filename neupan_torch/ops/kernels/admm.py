@@ -43,8 +43,8 @@ tile), columns in chunks of 32 (lane c: column c).
 No tensor cores: every product is a matrix times one vector per scenario
 and iteration, and the port keeps float32 throughout (TF32 off: reduced
 precision broke the accuracy contract). ``smem_bytes`` is the admission
-rule the wrapper has always applied; every shape it admits fits one of the
-two instances (the shared-memory one needs no more than it, with one warp).
+rule (``admm_fits``); every shape it admits fits one of the two instances
+(the shared-memory one needs no more than it, with one warp).
 """
 
 from __future__ import annotations
@@ -55,9 +55,17 @@ from neupan_torch.ops.kernels import _build
 
 
 def smem_bytes(k: int, m: int) -> int:
-    """The admission rule: the wrapper takes (k, m) while this fits one
-    block's shared memory. The kernel needs no more than this."""
+    """Shared memory the admission rule reserves for (k, m); the kernel
+    needs no more than this."""
     return 4 * (m * k + k * k + 4 * k + 9 * m)
+
+
+def admm_fits(k: int, m: int) -> bool:
+    """The admission rule: the kernel takes (k, m) while ``smem_bytes`` fits
+    one block's shared memory. The wrapper refuses any other shape, and the
+    QP (``ops/qp.py``) routes such shapes to ``admm_iterate_plain``, as the
+    JAX package's ``admm_kernel_fits`` gate does."""
+    return smem_bytes(k, m) <= _build.SMEM_LIMIT
 
 
 def _check_inputs(Minv, As, qs, ls, us, soft, rho, w0, z0, y0):
@@ -72,16 +80,16 @@ def _check_inputs(Minv, As, qs, ls, us, soft, rho, w0, z0, y0):
     for name, t in (("ls", ls), ("us", us), ("soft", soft), ("rho", rho),
                     ("z0", z0), ("y0", y0)):
         _build.check(t, name, (B, m), device=dev)
-    if smem_bytes(k, m) > _build.SMEM_LIMIT:
-        raise ValueError(f"the ADMM operator at k={k}, m={m} does not fit in "
-                         f"one block's shared memory")
     return dev, B, m, k
 
 
 def admm_iterate_plain(Minv, As, qs, ls, us, soft, rho, w0, z0, y0, *,
                        iters: int, sigma: float, alpha: float):
-    """The same function as ``admm_iterate`` in plain PyTorch."""
-    _check_inputs(Minv, As, qs, ls, us, soft, rho, w0, z0, y0)
+    """The same function as ``admm_iterate`` in plain PyTorch, at any (k, m).
+    Calls on CUDA tensors are counted in ``admm_iterate_plain.launches``."""
+    dev = _check_inputs(Minv, As, qs, ls, us, soft, rho, w0, z0, y0)[0]
+    if dev.type == "cuda":
+        admm_iterate_plain.launches += 1
     inv_rho = 1.0 / rho
     soft_fac = rho / (rho + soft)
     is_soft = soft > 0.0
@@ -110,9 +118,13 @@ def admm_iterate(Minv: torch.Tensor, As: torch.Tensor, qs: torch.Tensor,
 
     Args (float32, batched on axis 0): Minv (B, k, k) symmetric, As (B, m, k),
     qs/w0 (B, k), ls/us/soft/rho/z0/y0 (B, m).
-    Returns (w (B, k), z (B, m), y (B, m)).
+    Returns (w (B, k), z (B, m), y (B, m)). Raises, on either device, for a
+    shape ``admm_fits`` does not admit.
     """
     dev, B, m, k = _check_inputs(Minv, As, qs, ls, us, soft, rho, w0, z0, y0)
+    if not admm_fits(k, m):
+        raise ValueError(f"the ADMM operator at k={k}, m={m} does not fit in "
+                         f"one block's shared memory")
     if dev.type == "cpu":
         return admm_iterate_plain(Minv, As, qs, ls, us, soft, rho, w0, z0, y0,
                                   iters=iters, sigma=sigma, alpha=alpha)
@@ -128,3 +140,4 @@ def admm_iterate(Minv: torch.Tensor, As: torch.Tensor, qs: torch.Tensor,
 
 
 admm_iterate.launches = 0
+admm_iterate_plain.launches = 0

@@ -19,8 +19,11 @@ float32 peak. The chain: k + na = 48 sweep pivots, two Schur products, and
 6 + 7 x 9 = 69 dependent matrix-vector products of 18-30 elements.
 
 Design (``csrc/polish.cu``): one block of 4 warps per scenario, templated on
-NC = ceil(max(k, na) / 32) in 1..3, so every shape the wrapper admits
-(k, na <= 96) runs it.
+NC = ceil(max(k, na) / 32) in 1..4, so every shape the wrapper admits
+(``polish_fits``: k, na <= 128 within one block's shared memory, which
+covers the horizons up to T=33) runs it. Above n=96 the plain version
+inverts by Cholesky (``sweep.spd_inverse_any``); the kernel keeps its sweep,
+as the TPU kernel does at every n.
 
 * The two inverses: thread (warp w, lane c) holds rows w, w+4, ... of
   columns c, c+32, ... in registers. Pivot j reads row j (= column j) and
@@ -49,15 +52,25 @@ from __future__ import annotations
 import torch
 
 from neupan_torch.ops.kernels import _build
-from neupan_torch.ops.kernels.sweep import (MAX_N, spd_inverse_scaled,
-                                            sweep_spd_inverse_plain)
+from neupan_torch.ops.kernels.sweep import spd_inverse_any, sweep_spd_inverse_plain
+
+MAX_N = 128   # k and na: four 32-column chunks (csrc/polish.cu's NC)
 
 
 def smem_bytes(k: int, na: int) -> int:
-    """The admission rule: the wrapper takes (k, na) while this fits one
-    block's shared memory (with k, na <= 96). The kernel needs no more."""
-    nm = max(k, na)
-    return 4 * (3 * k * k + 2 * na * k + na * na + 9 * k + 5 * na + 4 * nm)
+    """Shared memory the kernel takes for (k, na) (``polish_smem_bytes`` in
+    ``csrc/polish.cu``)."""
+    nc = -(-max(k, na) // 32)
+    return 4 * (2 * 4 * 32 * nc + 2 * (32 * nc + 1) + 3 * k * k + 2 * na * (k | 1) + na * na
+                + k + na)
+
+
+def polish_fits(k: int, na: int) -> bool:
+    """The admission rule: the kernel takes (k, na) with k, na <= MAX_N while
+    ``smem_bytes`` fits one block's shared memory. The wrapper refuses any
+    other shape, and the QP (``ops/qp.py``) routes such shapes to
+    ``box_candidate_plain``."""
+    return max(k, na) <= MAX_N and smem_bytes(k, na) <= _build.SMEM_LIMIT
 
 
 def _check_inputs(Hr, Hr_true, DAn, C0, g1r, g2n, b_box, fix, d):
@@ -72,9 +85,6 @@ def _check_inputs(Hr, Hr_true, DAn, C0, g1r, g2n, b_box, fix, d):
         _build.check(t, name, (B, k), device=dev)
     for name, t in (("g2n", g2n), ("d", d)):
         _build.check(t, name, (B, na), device=dev)
-    if max(k, na) > MAX_N or smem_bytes(k, na) > _build.SMEM_LIMIT:
-        raise ValueError(f"box_candidate takes k, na <= {MAX_N} within one block's "
-                         f"shared memory, got k={k}, na={na}")
     return dev, B, k, na
 
 
@@ -83,15 +93,20 @@ def _mv(A, v):
 
 
 def box_candidate_plain(Hr, Hr_true, DAn, C0, g1r, g2n, b_box, fix, d, *, refine: int):
-    """The same function as ``box_candidate`` in plain PyTorch."""
-    _check_inputs(Hr, Hr_true, DAn, C0, g1r, g2n, b_box, fix, d)
+    """The same function as ``box_candidate`` in plain PyTorch, at any (k, na):
+    above 96 its inverses take the Cholesky route
+    (``sweep.spd_inverse_any``). Calls on CUDA tensors are counted in
+    ``box_candidate_plain.launches``."""
+    dev = _check_inputs(Hr, Hr_true, DAn, C0, g1r, g2n, b_box, fix, d)[0]
+    if dev.type == "cuda":
+        box_candidate_plain.launches += 1
     free = 1.0 - fix
     Hm = Hr * free[:, :, None] * free[:, None, :] + torch.diag_embed(fix)
-    Hm_inv = spd_inverse_scaled(Hm, sweep_spd_inverse_plain)
+    Hm_inv = spd_inverse_any(Hm, sweep_spd_inverse_plain)
     DAnT = DAn.transpose(1, 2)
     HD = torch.bmm(DAn, Hm_inv)                              # rows: Hm^{-1} DAn[b]'
     S = torch.bmm(HD, DAnT) + torch.diag_embed((1.0 - d) + 1e-6)
-    S_inv = spd_inverse_scaled(S, sweep_spd_inverse_plain)
+    S_inv = spd_inverse_any(S, sweep_spd_inverse_plain)
 
     def kkt_solve(r1, r_fix, r2n):
         t = free * (r1 - _mv(Hr, fix * r_fix)) + fix * r_fix
@@ -120,9 +135,13 @@ def box_candidate(Hr: torch.Tensor, Hr_true: torch.Tensor, DAn: torch.Tensor,
 
     Args (float32, batched on axis 0): Hr/Hr_true (B, k, k), DAn (B, na, k),
     C0/g1r/b_box/fix (B, k), g2n/d (B, na).
-    Returns (w (B, k), yn (B, na)).
+    Returns (w (B, k), yn (B, na)). Raises, on either device, for a shape
+    ``polish_fits`` does not admit.
     """
     dev, B, k, na = _check_inputs(Hr, Hr_true, DAn, C0, g1r, g2n, b_box, fix, d)
+    if not polish_fits(k, na):
+        raise ValueError(f"box_candidate takes k, na <= {MAX_N} within one block's "
+                         f"shared memory, got k={k}, na={na}")
     if dev.type == "cpu":
         return box_candidate_plain(Hr, Hr_true, DAn, C0, g1r, g2n, b_box, fix, d,
                                    refine=refine)
@@ -136,3 +155,4 @@ def box_candidate(Hr: torch.Tensor, Hr_true: torch.Tensor, DAn: torch.Tensor,
 
 
 box_candidate.launches = 0
+box_candidate_plain.launches = 0

@@ -15,7 +15,9 @@ scaling, the ridge and the unscaling in the same kernel on a card (the
 TPU package runs them as XLA ops around its kernel); on the CPU it runs
 them in PyTorch around the plain sweep, and with
 ``inverse=sweep_spd_inverse_plain`` it is the plain version of the fused
-call on either device.
+call on either device. Above n=96 (T >= 33 in the condensed QP)
+``spd_inverse_any`` takes the JAX package's route there: the same scaling
+and ridge around a Cholesky factorization (``cholesky_inverse``).
 
 Bound on the H100: bytes. The work is ~2 n^3 float operations per matrix
 against 8 n^2 bytes in and out (n=30: 54 kFLOP against 7.2 KB), far below
@@ -123,3 +125,25 @@ def spd_inverse_scaled(M: torch.Tensor, inverse=sweep_spd_inverse) -> torch.Tens
     Mt = Mt + 1e-7 * torch.eye(n, dtype=M.dtype, device=M.device)
     X = inverse(Mt.contiguous())
     return X * dj[:, :, None] * dj[:, None, :]
+
+
+def cholesky_inverse(Mt: torch.Tensor) -> torch.Tensor:
+    """Inverse of a batch of Jacobi-scaled, ridged SPD matrices by a Cholesky
+    factorization and solve (library calls): the route above ``MAX_N``, as
+    ``neupan_tpu/ops/qp.py:_spd_inverse`` takes it outside any Pallas
+    kernel. Calls on CUDA tensors are counted in ``cholesky_inverse.launches``."""
+    L = torch.linalg.cholesky(Mt)
+    eye = torch.eye(Mt.shape[-1], dtype=Mt.dtype, device=Mt.device).expand_as(Mt)
+    if Mt.is_cuda:
+        cholesky_inverse.launches += 1
+    # LAPACK leaves the solve column-major; the kernels read row-major
+    return torch.cholesky_solve(eye, L).contiguous()
+
+
+cholesky_inverse.launches = 0
+
+
+def spd_inverse_any(M: torch.Tensor, small=sweep_spd_inverse) -> torch.Tensor:
+    """``spd_inverse_scaled`` at any n: ``small`` (the sweep kernel, or its
+    plain version) up to ``MAX_N``, the Cholesky route above it."""
+    return spd_inverse_scaled(M, small if M.shape[-1] <= MAX_N else cholesky_inverse)

@@ -159,7 +159,6 @@ def _where(keep: torch.Tensor, old: torch.Tensor, new: torch.Tensor) -> torch.Te
     return torch.where(keep.reshape(-1, *([1] * (old.dim() - 1))), old, new)
 
 
-@torch.no_grad()
 def pan_forward(spec: PANSpec, encoder, vertices: torch.Tensor, G: torch.Tensor,
                 h: torch.Tensor, adjust: AdjustParams,
                 nom_s: torch.Tensor, nom_u: torch.Tensor, ref_s: torch.Tensor,
@@ -174,12 +173,29 @@ def pan_forward(spec: PANSpec, encoder, vertices: torch.Tensor, G: torch.Tensor,
         points, velocities (B, 2, P) world frame, padded; mask (B, P) bool;
         state: a batched PANState.
 
-    Inference only: the QP's backward pass comes with a later slice.
+    Inference only: the QP's backward pass comes with a later slice. Raises
+    where gradients are recorded and an ``adjust`` tensor requires grad;
+    otherwise the step runs under ``torch.no_grad()``.
     """
     same_device(vertices, G, h, nom_s, nom_u, ref_s, ref_us, points, velocities,
                 mask, *state, *adjust, *(p for p in encoder.parameters()))
-    if spec.nrmp.no_obs:
-        return _pan_forward_no_obs(spec, adjust, nom_s, nom_u, ref_s, ref_us, state)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in adjust):
+        raise RuntimeError(
+            "pan_forward is inference only: the QP's backward pass is not ported yet "
+            "(ROADMAP.md, Queue 1: QP backward and LON), so its outputs would carry no "
+            "gradient with respect to AdjustParams. Run it under torch.no_grad() or "
+            "with AdjustParams tensors that do not require grad.")
+    with torch.no_grad():
+        if spec.nrmp.no_obs:
+            return _pan_forward_no_obs(spec, adjust, nom_s, nom_u, ref_s, ref_us, state)
+        return _pan_forward_obs(spec, encoder, vertices, G, h, adjust, nom_s, nom_u,
+                                ref_s, ref_us, points, velocities, mask, state)
+
+
+def _pan_forward_obs(spec: PANSpec, encoder, vertices, G, h, adjust: AdjustParams,
+                     nom_s, nom_u, ref_s, ref_us, points, velocities, mask,
+                     state: PANState) -> PANOutput:
+    """The step with obstacle slots (``nrmp.K > 0``); see ``pan_forward``."""
     robot = spec.robot
     T, K = robot.T, spec.nrmp.K
     dtype = nom_s.dtype

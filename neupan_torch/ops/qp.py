@@ -20,9 +20,13 @@ planner step runs (``ADMMConfig`` with the ``elim_n_*`` statics filled by
    candidate solved by the polish kernel;
 4. a snap of x onto the single-variable bound rows.
 
-Every tensor carries the scenario batch as its leading axis. The full-space
-ADMM, the generic polish candidates, the banded inverse, n > 96 inverses
-and the backward pass belong to later slices of the port.
+Every tensor carries the scenario batch as its leading axis. Shapes a
+kernel does not admit (n > 96 inverses, which take the JAX package's
+Cholesky route; an ADMM operator or a polish candidate too large for one
+block) take the plain versions by an explicit
+admission check, as the JAX package's gates do; no kernel error is caught.
+The full-space ADMM, the generic polish candidates, the banded inverse and
+the backward pass belong to later slices of the port.
 """
 
 from __future__ import annotations
@@ -32,9 +36,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from neupan_torch.ops.kernels.admm import admm_iterate
-from neupan_torch.ops.kernels.polish import box_candidate
-from neupan_torch.ops.kernels.sweep import MAX_N, spd_inverse_scaled
+from neupan_torch.ops.kernels.admm import admm_fits, admm_iterate, admm_iterate_plain
+from neupan_torch.ops.kernels.polish import box_candidate, box_candidate_plain, polish_fits
+from neupan_torch.ops.kernels.sweep import spd_inverse_any
 
 _BIG = 1e20  # stand-in for +inf bounds
 
@@ -98,15 +102,6 @@ def _clip_bounds(l: torch.Tensor, u: torch.Tensor):
     return torch.clamp(l, min=-_BIG), torch.clamp(u, max=_BIG)
 
 
-def _spd_inverse(M: torch.Tensor) -> torch.Tensor:
-    """Inverse of a batch of SPD matrices through the sweep kernel
-    (kernels/sweep.py:spd_inverse_scaled)."""
-    n = M.shape[-1]
-    if n > MAX_N:
-        raise NotImplementedError(f"SPD inverses above n={MAX_N} are not ported yet (n={n})")
-    return spd_inverse_scaled(M)
-
-
 def _ruiz_equilibrate_dense(H, qv, A, l, u, soft, iters: int = 10):
     """Ruiz equilibration with a dense quadratic term H (condensed ADMM).
 
@@ -139,11 +134,14 @@ def _condensed_phases_batched(cfg: ADMMConfig, Hs, qs, As, ls, us, soft_s, w0, y
     """The condensed-ADMM phase loop on the scaled problem.
 
     Each phase builds its normal matrix Hs + sigma I + As' diag(rho) As with
-    one batched product, inverts it with the sweep kernel and runs its
-    fixed iteration count in the ADMM kernel; the rho of the next phase
-    comes from OSQP's residual balancing.
+    one batched product, inverts it (``spd_inverse_any``) and runs its fixed
+    iteration count in the ADMM kernel, or in its plain version where the
+    kernel does not admit (k, m) (``admm_fits``, as the JAX package's
+    ``admm_kernel_fits`` gate); the rho of the next phase comes from OSQP's
+    residual balancing.
     """
     B, m, k = As.shape
+    iterate = admm_iterate if admm_fits(k, m) else admm_iterate_plain
     is_eq = (us - ls) < 1e-9
     eye = torch.eye(k, dtype=Hs.dtype, device=Hs.device)
 
@@ -164,12 +162,12 @@ def _condensed_phases_batched(cfg: ADMMConfig, Hs, qs, As, ls, us, soft_s, w0, y
     for i in range(n_phases):
         rho = torch.where(is_eq, base_rho[:, None] * cfg.rho_eq_scale, base_rho[:, None])
         M = Hs + cfg.sigma * eye + torch.bmm((As * rho[:, :, None]).transpose(1, 2), As)
-        Minv = _spd_inverse(M)
+        Minv = spd_inverse_any(M)
         iters = per_phase if i < n_phases - 1 else cfg.iters - per_phase * (n_phases - 1)
-        w, z, y = admm_iterate(Minv, As, qs.contiguous(), ls.contiguous(), us.contiguous(),
-                               soft_s.contiguous(), rho.contiguous(), w.contiguous(),
-                               z.contiguous(), y.contiguous(), iters=iters,
-                               sigma=float(cfg.sigma), alpha=float(cfg.alpha))
+        w, z, y = iterate(Minv, As, qs.contiguous(), ls.contiguous(), us.contiguous(),
+                          soft_s.contiguous(), rho.contiguous(), w.contiguous(),
+                          z.contiguous(), y.contiguous(), iters=iters,
+                          sigma=float(cfg.sigma), alpha=float(cfg.alpha))
         if i < n_phases - 1:
             base_rho = rebalance(base_rho, w, z, y)
     return w, z, y
@@ -233,7 +231,8 @@ def _polish_candidate_condensed_box(qp: QPData, cfg: ADMMConfig, low_act, up_act
 
     Active bound rows pin coordinates of w (identity row/column in the
     reduced Hessian); only the active acceleration rows enter the dual
-    Schur complement. The candidate solve runs in the polish kernel.
+    Schur complement. The candidate solve runs in the polish kernel, or in
+    its plain version where the kernel does not admit (k, na) (``polish_fits``).
     Returns (x, y, ok) with y's bound and equality duals recovered from
     stationarity.
     """
@@ -285,9 +284,10 @@ def _polish_candidate_condensed_box(qp: QPData, cfg: ADMMConfig, low_act, up_act
     Hr_ref = torch.bmm(Zt, Z * P[:, :, None]) + SZtSZ
     C0 = _mv(Zt, -q - P * xp + SAtg3) - _mtv(SZ, _mv(SA, xp))
 
-    w, yn = box_candidate(*(t.contiguous() for t in (Hr, Hr_ref, DAn, C0, g1r, g2n,
-                                                       b_box, fix, d)),
-                          refine=int(cfg.refine_steps))
+    candidate = box_candidate if polish_fits(Z.shape[-1], n_acc) else box_candidate_plain
+    w, yn = candidate(*(t.contiguous() for t in (Hr, Hr_ref, DAn, C0, g1r, g2n,
+                                                 b_box, fix, d)),
+                      refine=int(cfg.refine_steps))
 
     x = _mv(Z, w) + xp
     y_acc = d * yn * rs
@@ -412,7 +412,7 @@ def solve_qp(qp: QPData, cfg: ADMMConfig, x0: torch.Tensor, y0: torch.Tensor,
     Aeq = qp.A[:, :n_eq]
     Geq = torch.bmm(Aeq, Aeq.transpose(1, 2)) + 1e-8 * torch.eye(
         n_eq, dtype=qp.A.dtype, device=qp.A.device)
-    Geq_inv = _spd_inverse(Geq)
+    Geq_inv = spd_inverse_any(Geq)
     x, y = _admm_core_condensed(qp, cfg, x0, y0, elim, Geq_inv)
     x, y = _polish(qp, cfg, x, y, elim, Geq_inv)
     x = _snap_variable_bounds(qp, x)

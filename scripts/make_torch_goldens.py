@@ -5,7 +5,7 @@
 Runs the JAX package on the CPU and writes the files under
 ``tests/golden/torch/`` (all of them, or the named ones: ``planner_step``,
 ``qp_solve``, ``planner_step_mlp``, ``planner_step_noobs``,
-``facade_corridor``):
+``facade_corridor`` and the ``loop_*`` goldens):
 
 * ``qp_solve.npz`` — three realistic NRMP QPs at the flagship shapes
   (T=10, K=10, contact walls; ``tests/test_qp_condensed.py:
@@ -30,6 +30,18 @@ Runs the JAX package on the CPU and writes the files under
   it returned. Off the TPU the JAX planner ranks on the materialized flow
   without the Pallas kernel, so the port is compared with its selection
   kernel switched off.
+* ``loop_<example>.npz`` (``LOOP_SCENARIOS``: ``corridor/acker``,
+  ``corridor/omni``, ``polygon_robot/diff``, ``corridor_long/diff`` at
+  T=30 and, as ``..._t33``, at T=33, ``dyna_obs/diff`` with point
+  velocities) — 15 closed-loop ticks of the JAX facade in the JAX
+  simulator (``neupan_tpu.sim``), from a start a few metres before the
+  obstacles: states, lidar scans, the points and velocities the facade
+  made of them, the state it carried into each tick, and what it returned.
+* ``qp_reverse_acker_warm.npz`` — the QP that the port's own closed loop on
+  ``reverse/acker`` builds at tick 10, the warm start its planner carries
+  there, and the JAX package's solution cold and from that warm start (the
+  only golden written by running the port: it pins a solve that both
+  packages stop short on from that start).
 
 Compiling the JAX step and the accurate warm-start solves takes a few
 minutes on a CPU.
@@ -166,6 +178,231 @@ def write_facade_golden(path: str) -> None:
              **{k: np.asarray(v) for k, v in rec.items()})
 
 
+# Closed-loop goldens: example, the robot's start (x, y, theta), the planner's
+# waypoints from there (the path runs start -> waypoints), the horizon (None: the
+# file's) and whether the points carry velocities from the scan. Each starts a few
+# metres before the obstacles, so that its 15 ticks plan around them.
+LOOP_SCENARIOS = {
+    "loop_corridor_acker": ("corridor/acker", (2.0, 20.0, 0.0), [[60, 20, 0]], None, False),
+    "loop_corridor_omni": ("corridor/omni", (4.0, 20.76, 0.188),
+                           [[10, 21.9, 0], [17, 20.5, 0], [23, 17.3, 0], [30, 20, 0],
+                            [36, 22, 0], [43, 20, 0], [50, 17.7, 0], [60, 20, 0]], None, False),
+    "loop_polygon_robot_diff": ("polygon_robot/diff", (6.0, 0.0, 0.0), [[40, 0, 0]], None, False),
+    "loop_corridor_long_diff": ("corridor_long/diff", (2.0, 20.0, 0.0), [[60, 20, 0]], None,
+                                False),
+    "loop_dyna_obs_diff": ("dyna_obs/diff", (8.0, 0.0, 0.0), [[40, 0, 0]], None, True),
+    "loop_corridor_long_diff_t33": ("corridor_long/diff", (2.0, 20.0, 0.0), [[60, 20, 0]], 33,
+                                    False),
+}
+LOOP_TICKS = 15
+CARRY = tuple(f"carry_{f}" for f in ("prev_mu", "prev_lam", "prev_s", "prev_u", "prev_valid",
+                                     "prev_has_points", "x_warm", "y_warm"))
+
+
+def loop_overrides(example: str, waypoints, receding=None) -> dict:
+    """``init_from_yaml`` overrides of a loop golden: the file's ipath section
+    with the golden's waypoints, and the horizon where one is given."""
+    import yaml
+
+    with open(os.path.join(ROOT, "examples", example, "planner.yaml")) as f:
+        ipath = yaml.safe_load(f)["ipath"]
+    out = {"ipath": dict(ipath, waypoints=[list(w) for w in waypoints])}
+    if receding is not None:
+        out["receding"] = int(receding)
+    return out
+
+
+# Whole episodes of the JAX facade from the example's own start and path, up to
+# arrival: example, the most ticks recorded, and whether the DUNE selection
+# takes the fused Pallas kernel (the TPU's path; here in interpret mode) or the
+# materialized point flow (the path off the TPU).
+EPISODES = {"episode_reverse_acker": ("reverse/acker", 100, False),
+            "episode_reverse_acker_fused": ("reverse/acker", 100, True)}
+
+
+def write_loop_golden(path: str, name: str) -> None:
+    """Closed-loop ticks of the JAX facade in ``neupan_tpu.sim``: LOOP_TICKS
+    from a ``LOOP_SCENARIOS`` golden's start, or an ``EPISODES`` golden's
+    whole episode up to arrival. Each tick's state, lidar scan, the points
+    (and velocities) the facade made of it, what the facade carried into the
+    tick (``CARRY``: its PANState; ``cur_vel``: its velocity plan), and the
+    action, minimum distance and flags it returned; the simulator is stepped
+    with that action, as ``examples/run_exp.py`` does."""
+    jax = _jax_setup()
+    import dataclasses
+    import functools
+
+    import neupan_tpu.ops.pallas.select as SEL
+    from neupan_tpu.ops.pan import pan_forward
+    from neupan_tpu.planner import NeuPan
+    from neupan_tpu.sim.env_loader import load_env
+
+    fused = False
+    if name in EPISODES:
+        (example, ticks, fused), start, receding, point_vel = EPISODES[name], None, None, False
+        overrides = {}
+    else:
+        example, start, waypoints, receding, point_vel = LOOP_SCENARIOS[name]
+        ticks, overrides = LOOP_TICKS, loop_overrides(example, waypoints, receding)
+    base = os.path.join(ROOT, "examples", example)
+    planner = NeuPan.init_from_yaml(os.path.join(base, "planner.yaml"), **overrides)
+    if fused:
+        SEL.select_topk_flow_pallas = functools.partial(SEL.select_topk_flow_pallas,
+                                                        interpret=True)
+        spec = planner.spec = dataclasses.replace(planner.spec, dune_pallas=True)
+        planner._step = jax.jit(lambda *a: pan_forward(spec, *a))
+    env = load_env(os.path.join(base, "env.yaml"), planner.robot)
+    if start is not None:
+        env.state = np.asarray(start, np.float64).reshape(3, 1)
+    beams = env.lidar.number
+    rec = {k: [] for k in ("state", "ranges", "scan_velocity", "points", "velocities",
+                           "counts", "action", "min_distance", "stop", "arrive",
+                           "collision", "cur_vel", *CARRY)}
+    for _ in range(ticks):
+        # what the facade carries into the tick: its PANState and velocity plan
+        for field in CARRY:
+            rec[field].append(np.asarray(getattr(planner.pan_state, field[len("carry_"):])))
+        rec["cur_vel"].append(np.asarray(planner.cur_vel_array, np.float64))
+        state = env.get_robot_state()
+        scan = env.get_lidar_scan()
+        if point_vel:
+            pts, vels = planner.scan_to_point_velocity(state, scan)
+        else:
+            pts, vels = planner.scan_to_point(state, scan), None
+        action, info = planner(state, pts, vels)
+        n = 0 if pts is None else pts.shape[1]
+        pad = lambda a: np.zeros((2, beams)) if a is None else np.pad(a, ((0, 0), (0, beams - n)))
+        for key, val in (("state", state), ("ranges", scan["ranges"]),
+                         ("scan_velocity", scan["velocity"]), ("points", pad(pts)),
+                         ("velocities", pad(vels)), ("counts", n),
+                         ("action", np.asarray(action, np.float64)),
+                         ("min_distance", planner.min_distance)):
+            rec[key].append(val)
+        for flag in ("stop", "arrive", "collision"):
+            rec[flag].append(bool(info[flag]))
+        if info["arrive"] and name in EPISODES:
+            break
+        env.step(action)
+    np.savez_compressed(path, name=name, example=example, receding=planner.T,
+                        point_vel=point_vel, fused=fused, start=np.asarray(rec["state"][0][:, 0]),
+                        **{k: np.asarray(v) for k, v in rec.items()})
+
+
+PLAN_GOLDEN, PLAN_TICK = "loop_corridor_acker", 2
+
+
+def _golden_inputs(g, i, point_vel):
+    """State, points and velocities of tick ``i`` of a loop golden."""
+    n = int(g["counts"][i])
+    pts = g["points"][i, :, :n] if n else None
+    return g["state"][i], pts, (g["velocities"][i, :, :n] if n and point_vel else None)
+
+
+def write_plan_sensitivity_golden(path: str) -> None:
+    """How far the JAX facade's action moves with its velocity plan: at tick
+    ``PLAN_TICK`` of ``PLAN_GOLDEN``, the JAX facade given the carried
+    PANState it recorded but the velocity plan that the port's facade
+    carries there when it carries its own state from tick 0 (CPU, fed the
+    golden's states and points)."""
+    jax = _jax_setup()
+    import dataclasses
+
+    import jax.numpy as jnp
+    import torch
+
+    from neupan_torch import NeuPan as TNeuPan
+    from neupan_tpu.planner import NeuPan
+
+    with np.load(os.path.join(GOLDEN_DIR, f"{PLAN_GOLDEN}.npz")) as fh:
+        g = {k: fh[k] for k in fh.files}
+    example, _, waypoints, receding, point_vel = LOOP_SCENARIOS[PLAN_GOLDEN]
+    yaml_file = os.path.join(ROOT, "examples", example, "planner.yaml")
+    overrides = loop_overrides(example, waypoints, receding)
+    port = TNeuPan.init_from_yaml(yaml_file, device="cpu", **overrides)
+    port.spec = dataclasses.replace(port.spec, dune_kernel=False)
+    with torch.no_grad():
+        for i in range(PLAN_TICK):
+            port(*_golden_inputs(g, i, point_vel))
+    plan = np.asarray(port.cur_vel_array, np.float64)
+    planner = NeuPan.init_from_yaml(yaml_file, **overrides)
+    PANState = type(planner.pan_state)
+    for i in range(PLAN_TICK + 1):
+        planner.pan_state = PANState(*(jnp.asarray(g[f][i]) for f in CARRY))
+        planner.cur_vel_array = plan.copy() if i == PLAN_TICK else g["cur_vel"][i].copy()
+        action, _ = planner(*_golden_inputs(g, i, point_vel))
+    action = np.asarray(action, np.float64)
+    print(f"{PLAN_GOLDEN} tick {PLAN_TICK}: plan moved by "
+          f"{np.abs(plan - g['cur_vel'][PLAN_TICK]).max():.3e}, JAX action by "
+          f"{np.abs(action - g['action'][PLAN_TICK]).max():.3e}")
+    np.savez(path, golden=PLAN_GOLDEN, tick=PLAN_TICK, cur_vel=plan, action=action)
+
+
+WARM_EXAMPLE, WARM_TICK = "reverse/acker", 10
+
+
+def write_warm_start_golden(path: str) -> None:
+    """The JAX facade's own closed loop on ``WARM_EXAMPLE`` up to
+    ``WARM_TICK``; there, the first PAN iteration's QP as the JAX planner
+    builds it, the warm start that planner carries, and the JAX package's
+    deployed (condensed) solution of that QP cold and warm-started. Prints
+    its relative objective gaps against the float64 oracle of
+    ``scripts/exp_control_accuracy_torch.py``."""
+    jax = _jax_setup()
+    import jax.numpy as jnp
+
+    from neupan_tpu.ops import qp as jqp
+    from neupan_tpu.ops.dune import dune_forward, generate_point_flow
+    from neupan_tpu.ops.nrmp import build_qp, coefficients_from_dune, condensation
+    from neupan_tpu.ops.pan import _admm_with_elim
+    from neupan_tpu.planner import NeuPan
+    from neupan_tpu.sim.env_loader import load_env
+    from scripts.exp_control_accuracy_torch import qp_objective, scipy_soft_oracle
+
+    base = os.path.join(ROOT, "examples", WARM_EXAMPLE)
+    planner = NeuPan.init_from_yaml(os.path.join(base, "planner.yaml"))
+    env = load_env(os.path.join(base, "env.yaml"), planner.robot)
+    for _ in range(WARM_TICK):
+        state = env.get_robot_state()
+        action, _ = planner(state, planner.scan_to_point(state, env.get_lidar_scan()))
+        env.step(action)
+    state = env.get_robot_state()
+    planner.ipath.check_arrive(state)   # the path's state advances here, as in the facade
+    spec, cfg = planner.spec, _admm_with_elim(planner.spec)
+    nom_s, nom_u, ref_s, ref_us = planner.ipath.generate_nom_ref_state(
+        state, planner.cur_vel_array, planner.ref_speed)
+    pts, vels, mask = planner._pad_points(
+        planner.scan_to_point(state, env.get_lidar_scan()), None)
+    f = lambda a: jnp.asarray(a, jnp.float32)
+    pf, R_all, glob = generate_point_flow(f(nom_s), pts, vels, spec.robot.dt)
+    vertices = f(spec.robot.vertices) if spec.dune_select == "exact" else None
+    dune = dune_forward(planner.dune_params, planner.G, planner.h, pf, R_all, glob, mask,
+                        spec.nrmp.K, select=spec.dune_select, vertices=vertices)
+    fa, fb = coefficients_from_dune(spec.nrmp, dune.mu_k, dune.lam_k, dune.points_k,
+                                    dune.valid_k, planner.h, jnp.any(mask))
+    A_dyn, B_dyn, C_dyn = spec.robot.linearize(f(nom_s), f(nom_u))
+    qp = build_qp(spec.nrmp, planner.adjust, f(nom_s), f(nom_u), f(ref_s), f(ref_us),
+                  A_dyn, B_dyn, C_dyn, fa, fb)
+    elim = condensation(spec.nrmp, A_dyn, B_dyn, C_dyn, f(nom_s)[:, 0])
+    x_warm, y_warm = planner.pan_state.x_warm, planner.pan_state.y_warm
+    with jax.default_matmul_precision("highest"):
+        j_sols = [jqp.solve_qp(qp, cfg, jnp.zeros_like(x_warm), jnp.zeros_like(y_warm), elim=elim),
+                  jqp.solve_qp(qp, cfg, x_warm, y_warm, elim=elim)]
+    rec = {k: np.asarray(getattr(qp, k)) for k in ("P_diag", "q", "A", "l", "u", "soft")}
+    rec.update(Z=np.asarray(elim[0]), xp=np.asarray(elim[1]), x_warm=np.asarray(x_warm),
+               y_warm=np.asarray(y_warm), x_cold=np.asarray(j_sols[0].x),
+               x_warm_solved=np.asarray(j_sols[1].x))
+    P, q, A, l, u, soft = (rec[k].astype(np.float64)
+                           for k in ("P_diag", "q", "A", "l", "u", "soft"))
+    f_ref = qp_objective(P, q, A, l, soft, scipy_soft_oracle(P, q, A, l, u, soft))
+    for start, key in (("cold", "x_cold"), ("warm", "x_warm_solved")):
+        gap = (qp_objective(P, q, A, l, soft, rec[key].astype(np.float64)) - f_ref) / (
+            1.0 + abs(f_ref))
+        print(f"{WARM_EXAMPLE} tick {WARM_TICK}, {start}: JAX relative objective gap {gap:.3e}")
+    np.savez(path, example=WARM_EXAMPLE, tick=WARM_TICK, T=spec.nrmp.T, K=spec.nrmp.K,
+             elim_n_eq=cfg.elim_n_eq, elim_n_hard=cfg.elim_n_hard, elim_n_acc=cfg.elim_n_acc,
+             kinematics=spec.nrmp.kinematics, **rec)
+
+
 def write_step_golden(path: str, variant: str = "fused") -> None:
     """``variant``: "fused" (exact ranking, Pallas select in interpret mode),
     "mlp" (learned-distance ranking) or "noobs" (K=0)."""
@@ -225,6 +462,10 @@ WRITERS = {
     "planner_step_mlp": lambda p: write_step_golden(p, "mlp"),
     "planner_step_noobs": lambda p: write_step_golden(p, "noobs"),
     "facade_corridor": write_facade_golden,
+    **{name: (lambda p, name=name: write_loop_golden(p, name))
+       for name in (*LOOP_SCENARIOS, *EPISODES)},
+    "qp_reverse_acker_warm": write_warm_start_golden,
+    "plan_corridor_acker": write_plan_sensitivity_golden,
 }
 
 

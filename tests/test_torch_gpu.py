@@ -439,6 +439,8 @@ def test_admm_kernel_matches_plain(cuda, B, k, m):
                                          (513, 30, 18, "random"),   # main path, > one wave
                                          (4, 20, 18, "random"),     # the K=0 step
                                          (2, 90, 58, "random"),     # T=30
+                                         (2, 99, 64, "random"),     # T=33, four chunks
+                                         (2, 128, 10, "random"),    # the largest k
                                          (3, 30, 18, "all fixed"), (3, 30, 18, "d zero")])
 def test_polish_kernel_matches_plain(cuda, B, k, na, case):
     """"all fixed": every coordinate pinned (fix = 1, the TPU wrapper's
@@ -543,3 +545,85 @@ def test_step_on_the_card_matches_cpu_and_launches_every_kernel(cuda):
     assert [w.launches - n for w, n in zip(wrappers, before)] == [2, 6, 4, 10, 2]
     assert float((out.opt_u.cpu() - ref.opt_u).abs().max()) <= 5e-4
     assert torch.equal(out.nrmp_valid.cpu(), ref.nrmp_valid)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,K", [(30, 12), (33, 10)])
+def test_long_horizon_step_on_the_card_takes_the_admitted_routes(cuda, T, K):
+    """A batched step where the kernels do not admit every shape (T=30 with
+    K=12: the ADMM operator; T=33: the inverses above n=96 and the ADMM
+    operator, while the polish kernel takes k=99): each QP stage takes the
+    kernel or its plain route as ops/qp.py's admission checks say, and
+    opt_u agrees with the CPU within chip_smoke.py's long-horizon bounds."""
+    import chip_smoke
+    from neupan_torch.models import load_checkpoint
+    from neupan_torch.ops.nrmp import AdjustParams, NRMPSpec
+    from neupan_torch.ops.pan import PANSpec
+    from neupan_torch.parallel import batched_init_state, batched_planner_step
+    from scripts.make_torch_goldens import step_inputs
+
+    B, P = 8, 128
+    robot = Robot.create(receding=T, step_time=0.1, **ROBOT)
+    nrmp = NRMPSpec(T=T, K=K, kinematics="diff", speed_bound=tuple(robot.speed_bound[:, 0]),
+                    acce_bound=tuple(robot.acce_bound[:, 0]))
+    spec = PANSpec(robot=robot, nrmp=nrmp, dune_max_num=P)
+    inp = {k: torch.from_numpy(v) for k, v in step_inputs(3, T, P, K, B).items()}
+    args = [inp[k] for k in ("nom_s", "nom_u", "ref_s", "ref_us", "pts1", "vels1", "mask1")]
+    adjust = AdjustParams(*(torch.tensor(v) for v in (1.0, 1.0, 10.0, 1.0, 0.1)))
+    ckpt = os.path.join(ROOT, "examples/model/diff_robot_default/model.npz")
+    ref = batched_planner_step(spec, load_checkpoint(ckpt, "cpu"), *robot.tensors("cpu"),
+                               adjust, *args, batched_init_state(spec, B, "cpu"))
+    k, m, na, n_eq = 3 * T, nrmp.m - nrmp.r_acc, nrmp.r_spd - nrmp.r_acc, nrmp.r_acc
+    counters = {"sweep": SW.sweep_spd_inverse, "cholesky": SW.cholesky_inverse,
+                "admm": AD.admm_iterate, "admm_plain": AD.admm_iterate_plain,
+                "polish": PO.box_candidate, "polish_plain": PO.box_candidate_plain}
+    before = {name: c.launches for name, c in counters.items()}
+    out = batched_planner_step(spec, load_checkpoint(ckpt, cuda), *robot.tensors(cuda),
+                               AdjustParams(*(t.to(cuda) for t in adjust)),
+                               *(a.to(cuda) for a in args), batched_init_state(spec, B, cuda))
+    torch.cuda.synchronize()
+    small = (n_eq <= SW.MAX_N) + 2 * (k <= SW.MAX_N)
+    admm_k, polish_k = 2 * AD.admm_fits(k, m), 5 * PO.polish_fits(k, na)
+    # a plain polish candidate inverts Hm (k) and S (na) itself, by Cholesky above 96
+    polish_plain = 2 * (5 - polish_k)
+    want = {"sweep": 2 * small,
+            "cholesky": 2 * (3 - small) + polish_plain * ((k > SW.MAX_N) + (na > SW.MAX_N)),
+            "admm": 2 * admm_k, "admm_plain": 2 * (2 - admm_k), "polish": 2 * polish_k,
+            "polish_plain": polish_plain}
+    assert {name: c.launches - before[name] for name, c in counters.items()} == want
+    assert want["admm_plain"] == 4 and want["polish"] == 10
+    assert T == 30 or (want["cholesky"], polish_plain) == (6, 0)
+    # chip_smoke.py's long-horizon bounds, where they are argued
+    d = (out.opt_u.cpu() - ref.opt_u).abs().amax(dim=(1, 2))
+    print(f"T={T} K={K}: opt_u card vs CPU max {float(d.max())}, median {float(d.median())}, "
+          f"above 5e-4 {int((d > 5e-4).sum())} of {B}")
+    assert float(d.median()) <= chip_smoke.LONG_HORIZON_MEDIAN
+    assert float(d.max()) <= chip_smoke.LONG_HORIZON_MAX
+    assert int((d > 5e-4).sum()) <= chip_smoke.LONG_HORIZON_ABOVE
+
+
+@pytest.mark.gpu
+def test_corridor_ticks_through_the_sim_on_the_card(cuda):
+    """examples/corridor/diff in the port's Sim2D: three closed-loop ticks
+    planned on the card, each against a CPU planner given the same state,
+    scan points and carried state."""
+    from neupan_torch import NeuPan
+    from neupan_torch.ops.pan import PANState
+    from neupan_torch.sim.env_loader import load_env
+
+    base = os.path.join(ROOT, "examples", "corridor", "diff")
+    planner = NeuPan.init_from_yaml(os.path.join(base, "planner.yaml"))
+    on_cpu = NeuPan.init_from_yaml(os.path.join(base, "planner.yaml"), device="cpu")
+    env = load_env(os.path.join(base, "env.yaml"), planner.robot)
+    for _ in range(3):
+        state = env.get_robot_state()
+        pts = planner.scan_to_point(state, env.get_lidar_scan())
+        on_cpu.pan_state = PANState(*(t.cpu() for t in planner.pan_state))
+        on_cpu.cur_vel_array = planner.cur_vel_array.copy()
+        action, info = planner(state, pts)
+        action_c, _ = on_cpu(state, pts)
+        assert info["state_tensor"].is_cuda and pts.shape[1] > 10
+        np.testing.assert_allclose(action, action_c, rtol=0, atol=5e-4)
+        assert abs(planner.min_distance - on_cpu.min_distance) <= 1e-4
+        env.step(action)
+    assert not env.collided and env.steps == 3

@@ -18,6 +18,7 @@ import torch
 
 from neupan_tpu.ops import qp as jqp
 from neupan_torch.ops import qp as tqp
+from neupan_torch.ops.kernels import sweep as SW
 from neupan_torch.ops.nrmp import NRMPSpec
 from neupan_torch.ops.pan import PANSpec, _admm_with_elim
 from neupan_torch.robot import Robot
@@ -104,9 +105,15 @@ def test_spd_inverse_on_stiff_nrmp_normal_matrices(golden):
         qp.soft[:, n_eq:], cfg.ruiz_iters)
     k = Hs.shape[-1]
     M = Hs + cfg.sigma * torch.eye(k) + torch.bmm(As.transpose(1, 2), As)
-    X = tqp._spd_inverse(M)
+    X = SW.spd_inverse_any(M)
     resid = np.abs(np.einsum("bij,bjk->bik", M.double().numpy(), X.double().numpy())
                    - np.eye(k)).max()
     assert resid < 5e-4, resid
-    with pytest.raises(NotImplementedError):
-        tqp._spd_inverse(torch.eye(97).expand(1, 97, 97).contiguous())
+    # above n=96 the Cholesky route, where the JAX package's _spd_inverse takes it
+    rng = np.random.default_rng(3)
+    Q = rng.normal(size=(2, 99, 99))
+    M99 = (Q @ Q.transpose(0, 2, 1) / 99 + np.eye(99) * rng.uniform(0.5, 1e3, 99)).astype(np.float32)
+    X99 = SW.spd_inverse_any(torch.from_numpy(M99)).numpy()
+    with jax.default_matmul_precision("highest"):
+        Xj = np.stack([np.asarray(jqp._spd_inverse(jnp.asarray(m), jqp.ADMMConfig())) for m in M99])
+    assert np.abs(X99 - Xj).max() <= 1e-5 * np.abs(Xj).max()
