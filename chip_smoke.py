@@ -67,6 +67,18 @@
      T=33; the polish kernel takes k=90 and 99): the counters must show
      exactly those routes, and opt_u is held against the CPU
      (``LONG_HORIZON_MEDIAN``, ``_MAX``, ``_ABOVE``).
+   * lon: the differentiated planner step and LON's tuning loop
+     (``examples/LON/LON_corridor_torch.py:run_episode``): 10 corridor/diff
+     tuning ticks with the near branch of the loss forced, each tick's
+     grads w.r.t. AdjustParams held against a CPU planner's from the card's
+     carried inputs (``GRAD_RTOL``); one 120-tick tuning episode (host ms
+     per tuning tick, the CPU's grads beside the card's on every tick with
+     a nonzero loss, the final weights beside the JAX record); one
+     differentiated B=512 flagship step (forward and backward ms by CUDA
+     events, each one's device time by the profiler, the KKT solve alone
+     at its B=512 shape and at T=30's, peak memory, and 32 scenarios'
+     loss and summed grads against the CPU). The forward launches select,
+     sweep, admm and polish, and the facade's ticks the fused MLP.
 
 Prints the kernels' JSON line, the paths' JSON line, the card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``; the
@@ -153,6 +165,16 @@ B_LONG, LONG_HORIZON_STEPS = 64, 2
 # scenarios flip from run to run: the phase reports them.
 LONG_HORIZON_MEDIAN, LONG_HORIZON_MAX, LONG_HORIZON_ABOVE = 2e-4, 3e-3, 4
 GLUE = "dune._lam_and_distance"   # the profiler's range around that glue
+# the differentiated step (LON): the forward runs the kernels but the encoder as a
+# module (the fused MLP kernel has no backward); the backward launches none
+PER_GRAD_STEP = dict(PER_STEP, mlp=0)
+LON_NEAR = 10.0           # a collision threshold that forces the near branch of the loss
+LON_TICKS = 10            # B=1 tuning ticks held against the CPU
+LON_EPISODE_TICKS, LON_THRESHOLD, LON_LR = 120, 0.4, 5e-3   # LON_corridor_torch.py's
+LON_SLICE = 32            # scenarios of the B=512 differentiated step rerun on the CPU
+# card vs CPU grads w.r.t. AdjustParams, each field relative to the largest
+# magnitude of the whole gradient: the ROADMAP's bar for the port against JAX
+GRAD_RTOL = 1e-3
 
 
 def fail(msg: str) -> None:
@@ -1167,6 +1189,230 @@ def long_horizon_path(torch, dev):
     return launches, report
 
 
+def grad_rel(grads, ref):
+    """Largest difference over the fields of two AdjustParams gradients,
+    relative to the largest magnitude of ``ref``."""
+    scale = max(float(g.abs().max()) for g in ref)
+    return max(float((a.cpu() - b).abs().max()) for a, b in zip(grads, ref)) / max(scale, 1e-30)
+
+
+def grad_list(grads):
+    return {f: g.cpu().tolist() for f, g in zip(grads._fields, grads)}
+
+
+def lon_path(torch, dev):
+    """LON on the card: the differentiated planner step and the tuning loop
+    (examples/LON/LON_corridor_torch.py:run_episode, planner and world from
+    CONFIGS).
+
+    1. LON_TICKS corridor/diff tuning ticks with the near branch forced:
+       each tick's grads w.r.t. AdjustParams against a CPU planner's from
+       the card's carried inputs and weights, to GRAD_RTOL.
+    2. One tuning episode of LON_EPISODE_TICKS ticks (threshold 0.4, lr
+       5e-3): host ms per tuning tick (facade tick, differentiated step,
+       Adam), median and p90; on each tick with a nonzero loss the CPU's
+       grads from the card's inputs beside the card's; the final weights
+       beside the JAX record's epoch 0 (examples/LON/results_corridor.txt:2).
+    3. One differentiated flagship step at B=512 with the near branch
+       forced: forward and backward ms (CUDA events), the device's busy time
+       and kernel count (profiler), the KKT solve's own time (torch.linalg.
+       solve on the step's own matrices, and at T=30's size from a B=64
+       step), peak memory; the loss and summed grads of LON_SLICE scenarios
+       against the CPU, to GRAD_RTOL.
+    """
+    from neupan_torch import NeuPan
+    from neupan_torch.lon import LONTuner, distance_loss, step_loss_and_grad
+    from neupan_torch.ops.nrmp import AdjustParams
+    from neupan_torch.ops.pan import PANState, pan_forward
+    from neupan_torch.parallel import batched_init_state
+
+    sys.path.insert(0, os.path.join(ROOT, "examples", "LON"))
+    import LON_corridor_torch as L
+
+    def episode(ticks, threshold, on_tick):
+        planner, env, kwargs = sim_planner("corridor/diff")
+        planner.stuck_enabled = False
+        L.MAX_STEPS, L.COLLISION_THRESHOLD = ticks, threshold
+        tuner = LONTuner(planner.adjust, lr=LON_LR)
+        counts = {"ticks": 0}
+        forward = planner.forward
+
+        def tick_counted(*args):
+            counts["ticks"] += 1
+            counts["t0"] = time.perf_counter()
+            return forward(*args)
+
+        planner.forward = tick_counted
+        (losses, _), launches = counted(
+            torch, f"lon ({ticks} ticks)", lambda r: {
+                k: counts["ticks"] * PER_STEP[k] + len(r[0]) * PER_GRAD_STEP[k] for k in PER_STEP},
+            lambda: L.run_episode(planner, tuner, None, env=env,
+                                  on_tick=lambda *a: on_tick(counts["t0"], *a)))
+        return planner, kwargs, losses, launches
+
+    def cpu_grads(cpu, rec, threshold):
+        """The CPU planner's step from the card's inputs, carried state and
+        weights of one tuning tick."""
+        inputs, state_in, adjust_in = rec[:3]
+        loss, grads, _ = step_loss_and_grad(
+            cpu.spec, cpu.encoder, cpu.vertices, cpu.G, cpu.h,
+            AdjustParams(*(t.cpu() for t in adjust_in)), *(t.cpu() for t in inputs),
+            PANState(*(t.cpu() for t in state_in)), collision_threshold=threshold)
+        return loss, grads
+
+    # 1. B=1 ticks, near branch forced, against the CPU
+    recs = []
+    planner, kwargs, losses, launches = episode(
+        LON_TICKS, LON_NEAR, lambda t0, *rec: recs.append(rec))
+    check(len(recs) == LON_TICKS and all(v > 0 for v in losses), f"lon ticks: losses {losses}")
+    tick_err, cpu = [], NeuPan(**kwargs, device="cpu")
+    for i, rec in enumerate(recs):
+        loss_c, grads_c = cpu_grads(cpu, rec, LON_NEAR)
+        e_loss = abs(float(rec[3]) - float(loss_c)) / abs(float(loss_c))
+        e = grad_rel(rec[4], grads_c)
+        check(e <= GRAD_RTOL and e_loss <= GRAD_RTOL,
+              f"lon tick {i}: grads card vs CPU differ by {e} (loss {e_loss}) > {GRAD_RTOL}: "
+              f"{grad_list(rec[4])} vs {grad_list(grads_c)}")
+        tick_err.append(e)
+    report = {"ticks": {"n": LON_TICKS, "threshold": LON_NEAR,
+                        "grad_card_vs_cpu_max": max(tick_err), "losses": losses,
+                        "grads_last": grad_list(recs[-1][4])}}
+
+    # 2. one tuning episode on the card
+    times, nonzero = [], []
+
+    def on_tick(t0, *rec):
+        times.append((time.perf_counter() - t0) * 1e3)
+        if float(rec[3]) > 0:
+            nonzero.append((len(times) - 1, rec))
+
+    planner, _, losses, counts = episode(LON_EPISODE_TICKS, LON_THRESHOLD, on_tick)
+    for k, v in counts.items():
+        launches[k] += v
+    beside = []
+    for i, rec in nonzero:
+        loss_c, grads_c = cpu_grads(cpu, rec, LON_THRESHOLD)
+        beside.append({"tick": i, "loss": float(rec[3]), "loss_cpu": float(loss_c),
+                       "card": grad_list(rec[4]), "cpu": grad_list(grads_c),
+                       "rel": grad_rel(rec[4], grads_c)})
+    steady = np.asarray(times[1:])
+    with open(os.path.join(ROOT, "examples", "LON", "results_corridor.txt")) as fh:
+        jax_epoch0 = fh.read().splitlines()[1]
+    final = {f: float(getattr(planner.adjust, f)) for f in ("p_u", "eta", "d_max")}
+    report["episode"] = {
+        "ticks": len(losses), "threshold": LON_THRESHOLD, "lr": LON_LR,
+        "episode_loss": float(np.sum(losses)), "nonzero_loss_ticks": len(nonzero),
+        "ms_per_tuning_tick_median": float(np.median(steady)),
+        "ms_per_tuning_tick_p90": float(np.percentile(steady, 90)),
+        "first_tick_ms": times[0], "final": final, "jax_record_epoch0": jax_epoch0,
+        "grad_card_vs_cpu_max": max((b["rel"] for b in beside), default=0.0),
+        "nonzero_ticks_card_vs_cpu": beside}
+    print(f"[lon episode] final {final} | JAX record: {jax_epoch0}", file=sys.stderr)
+
+    # 3. the differentiated flagship step at B=512
+    spec, encoder, geom, adjust, data = flagship(torch, dev, B_MAIN)
+    args = lambda sl, d: ([data[k][sl].to(d) for k in ("nom_s", "nom_u", "ref_s", "ref_us")]
+                          + [data["pts"][0][sl].to(d), data["vels"][sl].to(d),
+                             data["mask"][sl].to(d)])
+    state = batched_init_state(spec, B_MAIN, dev)
+    adj = AdjustParams(*(t.clone().requires_grad_(True) for t in adjust))
+    solves = []
+    solve = torch.linalg.solve
+
+    def spy(A, b):
+        solves.append((A, b))
+        return solve(A, b)
+
+    def forward():
+        out = pan_forward(spec, encoder, *geom, adj, *args(slice(None), dev), state)
+        return distance_loss(out.opt_d, out.min_distance, LON_NEAR).sum()
+
+    def backward(loss):
+        return AdjustParams(*torch.autograd.grad(loss, list(adj)))
+
+    def fwd_bwd():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        loss = forward()
+        ev[1].record()
+        grads = backward(loss)
+        ev[2].record()
+        torch.cuda.synchronize()
+        return ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]), grads
+
+    def kkt_of(run):
+        solves.clear()
+        torch.linalg.solve = spy
+        try:
+            run()
+        finally:
+            torch.linalg.solve = solve
+        return solves[0]
+
+    (_, _, grads512), step_counts = counted(
+        torch, "lon B=512 step", PER_GRAD_STEP, fwd_bwd)
+    for k, v in step_counts.items():
+        launches[k] += v
+    check(all(bool(torch.isfinite(g).all()) for g in grads512), "lon B=512: non-finite grads")
+    torch.cuda.reset_peak_memory_stats()
+    runs = [fwd_bwd() for _ in range(3)]
+    peak = torch.cuda.max_memory_allocated()
+    busy_fwd_us, n_fwd = profile_kernels(torch, forward)
+    loss = forward()
+    torch.cuda.synchronize()
+    busy_bwd_us, n_bwd = profile_kernels(torch, lambda: backward(loss))
+    K512, rhs512 = kkt_of(fwd_bwd)
+    spec30, enc30, geom30, adjust30, data30 = flagship(torch, dev, 64, T=30, K=10)
+    adj30 = AdjustParams(*(t.clone().requires_grad_(True) for t in adjust30))
+
+    def fwd_bwd30():
+        out = pan_forward(spec30, enc30, *geom30, adj30,
+                          *[data30[k] for k in ("nom_s", "nom_u", "ref_s", "ref_us")],
+                          data30["pts"][0], data30["vels"], data30["mask"],
+                          batched_init_state(spec30, 64, dev))
+        torch.autograd.grad(distance_loss(out.opt_d, out.min_distance, LON_NEAR).sum(),
+                            list(adj30))
+
+    K30, rhs30 = kkt_of(fwd_bwd30)
+    # host-clock ms per call (CUDA events around 10 calls: torch.linalg.solve
+    # checks its result on the host, so each call waits for the card) and the
+    # device's kernel time of one call (profiler)
+    kkt = {}
+    for K, b in ((K512, rhs512), (K30, rhs30)):
+        busy_us, n = profile_kernels(torch, lambda K=K, b=b: solve(K, b))
+        kkt[str(tuple(K.shape))] = {"ms": time_ms(torch, lambda K=K, b=b: solve(K, b), 10),
+                                    "device_ms": busy_us / 1e3, "device_kernels": n}
+
+    # the loss and summed grads of a slice, card against CPU
+    sl = slice(0, LON_SLICE)
+    enc_c, geom_c, adjust_c = to_cpu(encoder, geom, adjust)
+    state_c = batched_init_state(spec, LON_SLICE, "cpu")
+    loss_g, grads_g, _ = step_loss_and_grad(spec, encoder, *geom, adjust, *args(sl, dev),
+                                            batched_init_state(spec, LON_SLICE, dev),
+                                            collision_threshold=LON_NEAR)
+    loss_c, grads_c, _ = step_loss_and_grad(spec, enc_c, *geom_c, adjust_c,
+                                            *args(sl, torch.device("cpu")), state_c,
+                                            collision_threshold=LON_NEAR)
+    e_slice = grad_rel(grads_g, grads_c)
+    e_loss = float(((loss_g.cpu() - loss_c).abs() / loss_c.abs()).max())
+    check(e_slice <= GRAD_RTOL and e_loss <= GRAD_RTOL,
+          f"lon B={LON_SLICE} slice: grads card vs CPU differ by {e_slice} (loss {e_loss}): "
+          f"{grad_list(grads_g)} vs {grad_list(grads_c)}")
+    fwd_ms = float(np.median([r[0] for r in runs]))
+    bwd_ms = float(np.median([r[1] for r in runs]))
+    report["step_B512"] = {
+        "B": B_MAIN, "forward_ms": fwd_ms, "backward_ms": bwd_ms,
+        "forward_device_busy_ms": busy_fwd_us / 1e3, "forward_device_kernels": n_fwd,
+        "backward_device_busy_ms": busy_bwd_us / 1e3, "backward_device_kernels": n_bwd,
+        "device_idle_share": 1.0 - (busy_fwd_us + busy_bwd_us) / 1e3 / (fwd_ms + bwd_ms),
+        "kkt_solve_ms": kkt, "peak_memory_bytes": peak, "grads": grad_list(grads512),
+        "slice": LON_SLICE, "slice_grad_card_vs_cpu": e_slice,
+        "slice_loss_card_vs_cpu": e_loss, "slice_grads_card": grad_list(grads_g),
+        "slice_grads_cpu": grad_list(grads_c)}
+    print(f"[lon] {json.dumps(report['step_B512'])}", file=sys.stderr)
+    return launches, report
+
+
 def profile_kernels(torch, run):
     """Device kernel time (us) and kernel count over one call of ``run``."""
     from torch.autograd import DeviceType
@@ -1270,6 +1516,9 @@ def main() -> None:
     by_path["parity"], report["closed_loop_card_vs_cpu"] = parity_path(torch)
     print(f"[parity] {json.dumps(report['closed_loop_card_vs_cpu'])}", file=sys.stderr)
     by_path["long_horizon"], report["long_horizon"] = long_horizon_path(torch, dev)
+    by_path["lon"], report["lon"] = lon_path(torch, dev)
+    for name in ("select", "sweep", "admm", "polish"):
+        check(by_path["lon"][name] > 0, f"lon path: {name} was not launched")
     card = card_name_and_power()
 
     entries = []

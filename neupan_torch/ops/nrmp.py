@@ -212,6 +212,8 @@ def build_qp(spec: NRMPSpec, adjust: AdjustParams,
     soft = None
     if not spec.no_obs:
         ones = torch.ones((B, T), dtype=dtype, device=dev)
+        # at d_min == 0 exactly the clamp passes the whole gradient where
+        # jnp.maximum passes half; only a tuner that drives d_min to 0 sees it
         d_lo = ones * torch.clamp(adjust.d_min, min=0.0).to(dtype)
         d_hi = ones * adjust.d_max.to(dtype)
         l_parts += [d_lo, fb.reshape(B, -1).to(dtype)]

@@ -173,19 +173,20 @@ def pan_forward(spec: PANSpec, encoder, vertices: torch.Tensor, G: torch.Tensor,
         points, velocities (B, 2, P) world frame, padded; mask (B, P) bool;
         state: a batched PANState.
 
-    Inference only: the QP's backward pass comes with a later slice. Raises
-    where gradients are recorded and an ``adjust`` tensor requires grad;
-    otherwise the step runs under ``torch.no_grad()``.
+    Differentiable in ``adjust``: where gradients are recorded and an
+    ``adjust`` tensor requires grad, the step records its graph (the JAX
+    package's ``jax.grad`` through ``pan_forward``). The selection runs
+    without gradients, the encoder as a module (the fused MLP kernel has no
+    backward, and the auto rule of ``PANSpec.dune_mlp_kernel`` turns it
+    off), and the QP's backward is the implicit differentiation of
+    ``ops/qp.py:_SolveQP``; the gradient reaches the second PAN iteration
+    through the first one's trajectory. Otherwise the step runs under
+    ``torch.no_grad()``.
     """
     same_device(vertices, G, h, nom_s, nom_u, ref_s, ref_us, points, velocities,
                 mask, *state, *adjust, *(p for p in encoder.parameters()))
-    if torch.is_grad_enabled() and any(t.requires_grad for t in adjust):
-        raise RuntimeError(
-            "pan_forward is inference only: the QP's backward pass is not ported yet "
-            "(ROADMAP.md, Queue 1: QP backward and LON), so its outputs would carry no "
-            "gradient with respect to AdjustParams. Run it under torch.no_grad() or "
-            "with AdjustParams tensors that do not require grad.")
-    with torch.no_grad():
+    record = torch.is_grad_enabled() and any(t.requires_grad for t in adjust)
+    with torch.enable_grad() if record else torch.no_grad():
         if spec.nrmp.no_obs:
             return _pan_forward_no_obs(spec, adjust, nom_s, nom_u, ref_s, ref_us, state)
         return _pan_forward_obs(spec, encoder, vertices, G, h, adjust, nom_s, nom_u,

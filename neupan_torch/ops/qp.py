@@ -25,8 +25,13 @@ kernel does not admit (n > 96 inverses, which take the JAX package's
 Cholesky route; an ADMM operator or a polish candidate too large for one
 block) take the plain versions by an explicit
 admission check, as the JAX package's gates do; no kernel error is caught.
-The full-space ADMM, the generic polish candidates, the banded inverse and
-the backward pass belong to later slices of the port.
+The full-space ADMM, the generic polish candidates and the banded inverse
+belong to later slices of the port.
+
+``solve_qp`` is differentiable in the QP's fields (``_SolveQP``): the
+backward is the JAX package's implicit differentiation of the active-set
+KKT system at the solution, one batched linear solve; the forward keeps
+running the kernels above.
 """
 
 from __future__ import annotations
@@ -77,6 +82,7 @@ class ADMMConfig:
     alpha: float = 1.6
     refine_steps: int = 7
     eps_act: float = 1e-5
+    polish_delta: float = 1e-7
     polish_rounds: int = 5
     ruiz_iters: int = 10
     elim_n_eq: Optional[int] = None
@@ -401,6 +407,10 @@ def solve_qp(qp: QPData, cfg: ADMMConfig, x0: torch.Tensor, y0: torch.Tensor,
     (ops/nrmp.py:condensation); ``cfg`` must carry the row-layout statics
     (ops/pan.py:_admm_with_elim). ``qp.soft`` may be None (the no-obstacle
     problem has no soft rows).
+
+    Differentiable in the QP's fields through ``x`` alone (``_SolveQP``);
+    the warm start and the elimination basis receive no gradient, as in the
+    JAX package (the basis duplicates information already inside ``qp``).
     """
     if cfg.elim_n_eq is None or cfg.elim_n_hard is None or cfg.elim_n_acc is None:
         raise NotImplementedError("only the condensed, box-eliminating solver path is ported")
@@ -408,6 +418,11 @@ def solve_qp(qp: QPData, cfg: ADMMConfig, x0: torch.Tensor, y0: torch.Tensor,
         # no soft rows: an all-zero penalty marks every row hard and adds
         # exact zeros wherever the soft terms enter
         qp = qp._replace(soft=torch.zeros_like(qp.l))
+    return QPSolution(*_SolveQP.apply(cfg, *qp, x0, y0, *elim))
+
+
+def _solve(qp: QPData, cfg: ADMMConfig, x0, y0, elim):
+    """The forward solve of ``solve_qp``; ``qp.soft`` is a tensor."""
     n_eq = cfg.elim_n_eq
     Aeq = qp.A[:, :n_eq]
     Geq = torch.bmm(Aeq, Aeq.transpose(1, 2)) + 1e-8 * torch.eye(
@@ -422,3 +437,74 @@ def solve_qp(qp: QPData, cfg: ADMMConfig, x0: torch.Tensor, y0: torch.Tensor,
     viol = torch.where(qp.soft > 0.0, torch.zeros_like(Ax), torch.abs(Ax - z))
     return QPSolution(x=x, y=y, z=z, r_prim=torch.amax(viol, dim=-1),
                       r_dual=_amax(qp.P_diag * x + qp.q + _mtv(qp.A, y)))
+
+
+class _SolveQP(torch.autograd.Function):
+    """``solve_qp`` with the JAX package's custom VJP
+    (neupan_tpu/ops/qp.py:_solve_qp_vjp): the forward is the solve, the
+    backward reads only (qp, x, y) and propagates the cotangent of x."""
+
+    @staticmethod
+    def forward(ctx, cfg, P_diag, q, A, l, u, soft, x0, y0, Z, xp):
+        sol = _solve(QPData(P_diag, q, A, l, u, soft), cfg, x0, y0, (Z, xp))
+        ctx.cfg = cfg
+        ctx.save_for_backward(P_diag, q, A, l, u, soft, sol.x, sol.y)
+        # only the cotangent of the primal solution propagates
+        ctx.mark_non_differentiable(sol.y, sol.z, sol.r_prim, sol.r_dual)
+        return tuple(sol)
+
+    @staticmethod
+    def backward(ctx, gx, *_):
+        P_diag, q, A, l, u, soft, x, y = ctx.saved_tensors
+        dqp = _solve_bwd_impl(ctx.cfg, QPData(P_diag, q, A, l, u, soft), x, y, gx)
+        # the warm start gets zero cotangent, the elimination basis none
+        return (None, *dqp, torch.zeros_like(x), torch.zeros_like(y), None, None)
+
+
+def _solve_bwd_impl(cfg: ADMMConfig, qp: QPData, x, y, gx) -> QPData:
+    """Implicit differentiation through the active-set KKT conditions
+    (neupan_tpu/ops/qp.py:_solve_bwd_impl), batched over the leading B.
+
+    At the solution P x + q + A' y = 0 and, for active rows, A_i x = b_i.
+    Differentiating gives the adjoint system K' [dx; dnu] = [g_x; 0]; the
+    parameter gradients follow the OptNet formulas for a diagonal P.
+    Returns the cotangents of the QP's fields.
+    """
+    P, A = qp.P_diag, qp.A
+    l, u = _clip_bounds(qp.l, qp.u)
+    B, m, n = A.shape
+    is_eq = (u - l) < 1e-9
+    low_act = y < -cfg.eps_act
+    up_act = y > cfg.eps_act
+    active = low_act | up_act | is_eq
+    d = active.to(P.dtype)
+    DA = A * d[:, :, None]
+
+    delta = cfg.polish_delta
+    # Diagonal of the dual block. Hard rows: -delta if active (equality
+    # A_i x = b_i), -delta-1 if inactive (y_i = 0). Soft penalty rows with
+    # y_i = soft*(A_i x - l_i) < 0 satisfy the relaxed active equation
+    # A_i x - y_i/soft_i = l_i, i.e. a -1/soft_i diagonal entry.
+    diag2 = -delta - (1.0 - d)
+    s_act = (qp.soft > 0.0) & low_act
+    soft_safe = torch.clamp(qp.soft, min=1e-12)
+    diag2 = torch.where(s_act, -delta - 1.0 / soft_safe, diag2)
+
+    K = torch.zeros((B, n + m, n + m), dtype=P.dtype, device=P.device)
+    K[:, :n, :n] = torch.diag_embed(P + delta)
+    K[:, :n, n:] = DA.transpose(1, 2)
+    K[:, n:, :n] = DA
+    K[:, n:, n:] = torch.diag_embed(diag2)
+
+    rhs = torch.cat([gx, torch.zeros((B, m), dtype=P.dtype, device=P.device)], dim=1)
+    sol = torch.linalg.solve(K.transpose(1, 2), rhs[:, :, None])[:, :, 0]
+    dx, dnu = sol[:, :n], sol[:, n:] * d   # inactive rows carry no sensitivity
+
+    zero = torch.zeros_like(dnu)
+    return QPData(
+        P_diag=-dx * x,                    # diagonal of -(dx x' + x dx')/2 * 2
+        q=-dx,
+        A=-(dnu[:, :, None] * x[:, None, :] + (y * d)[:, :, None] * dx[:, None, :]),
+        l=torch.where(active & ~up_act, dnu, zero),
+        u=torch.where(up_act, dnu, zero),
+        soft=torch.where(s_act, -dnu * y / soft_safe ** 2, zero))

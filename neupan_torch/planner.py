@@ -7,6 +7,12 @@ properties (min_distance / dune_points / nrmp_points / initial_path /
 adjust_parameters / waypoints / opt_trajectory / ref_trajectory).
 ``train_dune`` is not ported yet and raises.
 
+The tick itself runs without gradients (the fused MLP kernel on the card);
+LON (``neupan_torch/lon.py``, ``examples/LON/*_torch.py``) differentiates
+the same step after a tick from ``pan_state``, ``cur_vel_array`` and
+``_pad_points`` and installs the tuned weights with
+``set_adjust_parameters``.
+
 This class is a thin host shell around the batched PAN step
 (``ops/pan.py:pan_forward``) at a batch of one. The robot geometry, the
 encoder, the adjustable weights and the ``PANState`` live on the planner's

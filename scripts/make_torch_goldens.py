@@ -5,7 +5,7 @@
 Runs the JAX package on the CPU and writes the files under
 ``tests/golden/torch/`` (all of them, or the named ones: ``planner_step``,
 ``qp_solve``, ``planner_step_mlp``, ``planner_step_noobs``,
-``facade_corridor`` and the ``loop_*`` goldens):
+``facade_corridor``, the ``loop_*`` goldens and the LON goldens):
 
 * ``qp_solve.npz`` — three realistic NRMP QPs at the flagship shapes
   (T=10, K=10, contact walls; ``tests/test_qp_condensed.py:
@@ -42,6 +42,21 @@ Runs the JAX package on the CPU and writes the files under
   there, and the JAX package's solution cold and from that warm start (the
   only golden written by running the port: it pins a solve that both
   packages stop short on from that start).
+* ``qp_vjp.npz`` — the QP backward alone: the first PAN iteration's QP of
+  the tests/test_lon.py setup and of a corridor/diff tick near the first
+  obstacle with its elimination basis, JAX's solution (x, y), a seeded
+  cotangent of x and JAX's ``_solve_bwd_impl`` cotangents of the QP's
+  fields, with how close the
+  duals sit to the ``eps_act`` threshold that picks the active set.
+* ``lon_step.npz`` — ``neupan_tpu.lon.step_loss_and_grad`` on the
+  test_lon.py setup (scalar and 3-vector q_s, iter_num 1 and 2) and on that
+  corridor/diff tick with the near branch of the loss forced: inputs,
+  carried state, weights, loss, grads and the loss's central difference in
+  eta.
+* ``lon_ticks_corridor_diff.npz`` — 8 ticks of JAX's
+  ``examples/LON/LON_corridor.py:run_episode`` with the near branch forced:
+  each tick's inputs, carried state, loss, grads and weights before and
+  after the tuner's update (~5 min for the three LON goldens).
 
 Compiling the JAX step and the accurate warm-start solves takes a few
 minutes on a CPU.
@@ -456,6 +471,243 @@ def write_step_golden(path: str, variant: str = "fused") -> None:
     np.savez(path, seed=STEP_SEED, **STEP_SHAPE, **inp, **res)
 
 
+LON_CORRIDOR = "corridor/diff"
+LON_NEAR = 10.0         # a collision threshold that forces the near branch of distance_loss
+LON_TICKS = 8
+LON_SQUEEZE = 1.0       # the corridor case: the first tick with an obstacle this close
+LON_STEP_CASES = ("lon_scalar_it1", "lon_scalar_it2", "lon_vec_it1", "lon_vec_it2", "corridor")
+LON_INPUTS = ("nom_s", "nom_u", "ref_s", "ref_us", "pts", "vels", "mask")
+LON_FD_EPS = 0.05       # tests/test_lon.py's central difference in eta
+QP_FIELDS = ("P_diag", "q", "A", "l", "u", "soft")
+
+
+def _lon_vec_loss(out, ref_s, ref_us, stuck):
+    """tests/test_lon.py's vector-q_s loss: state + speed tracking MSE."""
+    from neupan_tpu.lon import tracking_losses
+
+    s_l, u_l = tracking_losses(out, ref_s, ref_us)
+    return s_l + u_l
+
+
+def _lon_cases():
+    """The JAX inputs of each ``lon_step`` case: (spec, params, G, h, adjust,
+    inputs (LON_INPUTS order), state, loss_fn, threshold, extra), the
+    tests/test_lon.py setup with scalar and 3-vector q_s at iter_num 1 and
+    2, and the corridor/diff tick of ``_lon_corridor_tick``."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    from neupan_tpu.ops.pan import init_state
+    from tests.test_lon import setup
+
+    spec, params, G, h, adj, inputs = setup()
+    cases = {}
+    for it in (1, 2):
+        sp = dataclasses.replace(spec, iter_num=it)
+        cases[f"lon_scalar_it{it}"] = (sp, params, G, h, adj, inputs, init_state(sp), None,
+                                       LON_NEAR, {})
+        adj3 = adj._replace(q_s=jnp.asarray([1.0, 1.0, 0.5], jnp.float32))
+        cases[f"lon_vec_it{it}"] = (sp, params, G, h, adj3, inputs, init_state(sp),
+                                    _lon_vec_loss, 0.3, {})
+    cases["corridor"] = _lon_corridor_tick()
+    return cases
+
+
+def _lon_corridor_tick():
+    """The JAX facade's closed loop on corridor/diff (tuning off, stuck
+    escape off, as LON runs it) up to the first tick whose min_distance
+    falls below LON_SQUEEZE; there, the inputs LON_corridor.run_episode
+    differentiates."""
+    import jax.numpy as jnp
+
+    from neupan_tpu.planner import NeuPan
+    from neupan_tpu.sim.env_loader import load_env
+
+    base = os.path.join(ROOT, "examples", *LON_CORRIDOR.split("/"))
+    planner = NeuPan.init_from_yaml(os.path.join(base, "planner.yaml"))
+    planner.stuck_enabled = False
+    env = load_env(os.path.join(base, "env.yaml"), planner.robot)
+    for tick in range(200):
+        state = env.get_robot_state()
+        points = planner.scan_to_point(state, env.get_lidar_scan())
+        action, _ = planner(state, points)
+        if points is not None and planner.min_distance < LON_SQUEEZE:
+            break
+        env.step(action)
+    f = lambda a: jnp.asarray(a, jnp.float32)
+    nom = planner.ipath.generate_nom_ref_state(state, planner.cur_vel_array, planner.ref_speed)
+    inputs = (*(f(a) for a in nom), *planner._pad_points(points, None))
+    return (planner.spec, planner.dune_params, planner.G, planner.h, planner.adjust, inputs,
+            planner.pan_state, None, LON_NEAR,
+            dict(tick=tick, min_distance=planner.min_distance, robot_state=state))
+
+
+def _first_qp(spec, params, G, h, adjust, inputs, state):
+    """The QP of the first PAN iteration of a JAX step, as ``pan_forward``
+    builds it on the CPU (materialized flow), with its config, elimination
+    basis and warm start."""
+    import jax.numpy as jnp
+
+    from neupan_tpu.ops.dune import dune_forward, generate_point_flow
+    from neupan_tpu.ops.nrmp import build_qp, coefficients_from_dune, condensation
+    from neupan_tpu.ops.pan import _admm_with_elim
+
+    nom_s, nom_u, ref_s, ref_us, pts, vels, mask = inputs
+    pf, R_all, glob = generate_point_flow(nom_s, pts, vels, spec.robot.dt)
+    vertices = jnp.asarray(spec.robot.vertices, jnp.float32)
+    dune = dune_forward(params, G, h, pf, R_all, glob, mask, spec.nrmp.K, select="exact",
+                        vertices=vertices)
+    fa, fb = coefficients_from_dune(spec.nrmp, dune.mu_k, dune.lam_k, dune.points_k,
+                                    dune.valid_k, h, jnp.any(mask))
+    A_dyn, B_dyn, C_dyn = spec.robot.linearize(nom_s, nom_u)
+    qp = build_qp(spec.nrmp, adjust, nom_s, nom_u, ref_s, ref_us, A_dyn, B_dyn, C_dyn, fa, fb)
+    elim = condensation(spec.nrmp, A_dyn, B_dyn, C_dyn, nom_s[:, 0])
+    return qp, _admm_with_elim(spec), elim, state.x_warm, state.y_warm
+
+
+def write_qp_vjp_golden(path: str) -> None:
+    """The QP backward alone: for the tests/test_lon.py setup and the
+    corridor/diff tick, the first PAN iteration's QP and its elimination
+    basis, JAX's solution (x, y),
+    a seeded cotangent g of x and JAX's ``_solve_bwd_impl`` cotangents of
+    the QP's fields. Prints each case's smallest | |y_i| - eps_act |: the
+    active set is chosen by that threshold."""
+    jax = _jax_setup()
+    from types import SimpleNamespace
+
+    from neupan_tpu.ops import qp as jqp
+
+    cases = _lon_cases()
+    rec = {}
+    for i, name in enumerate(("lon_scalar_it1", "corridor")):
+        spec, params, G, h, adj, inputs, state, _, _, _ = cases[name]
+        qp, cfg, elim, x0, y0 = _first_qp(spec, params, G, h, adj, inputs, state)
+        with jax.default_matmul_precision("highest"):
+            sol = jqp.solve_qp(qp, cfg, x0, y0, elim=elim)
+            g = np.random.default_rng(i).normal(size=sol.x.shape).astype(np.float32)
+            dqp, _, _ = jqp._solve_bwd_impl(cfg, qp, sol.x, sol.y, SimpleNamespace(x=g))
+        y = np.asarray(sol.y)
+        margin = float(np.min(np.abs(np.abs(y) - cfg.eps_act)))
+        near = int(np.sum((np.abs(y) > 0.1 * cfg.eps_act) & (np.abs(y) < 10 * cfg.eps_act)))
+        print(f"qp_vjp {name}: n={sol.x.shape[0]} m={y.shape[0]}, smallest | |y| - eps_act | "
+              f"{margin:.3e}, rows with |y| within 10x of eps_act {near}, largest |y| "
+              f"{np.abs(y).max():.3e}")
+        for k in QP_FIELDS:
+            rec[f"{name}__{k}"] = np.asarray(getattr(qp, k))
+            rec[f"{name}__d{k}"] = np.asarray(getattr(dqp, k))
+        rec.update({f"{name}__x": np.asarray(sol.x), f"{name}__y": y, f"{name}__g": g,
+                    f"{name}__Z": np.asarray(elim[0]), f"{name}__xp": np.asarray(elim[1]),
+                    f"{name}__eps_margin": margin, f"{name}__eps_near_rows": near,
+                    f"{name}__eps_act": cfg.eps_act,
+                    f"{name}__polish_delta": cfg.polish_delta})
+    np.savez_compressed(path, cases=np.asarray(["lon_scalar_it1", "corridor"]), **rec)
+
+
+def write_lon_step_golden(path: str) -> None:
+    """``neupan_tpu.lon.step_loss_and_grad`` on each of LON_STEP_CASES: its
+    inputs, carried state, adjust weights, loss and grads, and the central
+    difference of the loss in eta (``LON_FD_EPS``, as tests/test_lon.py
+    takes it). The test_lon.py encoder's random weights are stored too."""
+    _jax_setup()
+    import jax.numpy as jnp
+
+    from neupan_tpu.lon import step_loss_and_grad
+
+    cases = _lon_cases()
+    rec = {f"enc_{k}": np.asarray(v) for k, v in cases["lon_scalar_it1"][1].items()}
+    for name in LON_STEP_CASES:
+        spec, params, G, h, adj, inputs, state, loss_fn, thr, extra = cases[name]
+        run = lambda a: step_loss_and_grad(spec, params, G, h, a, *inputs, state,
+                                           loss_fn=loss_fn, collision_threshold=thr)
+        loss, grads, out = run(adj)
+        fd = [float(run(adj._replace(eta=jnp.asarray(float(adj.eta) + s * LON_FD_EPS,
+                                                      jnp.float32)))[0]) for s in (1, -1)]
+        fd_eta = (fd[0] - fd[1]) / (2 * LON_FD_EPS)
+        print(f"lon_step {name}: loss {float(loss):.6g}, grads "
+              f"{[np.asarray(g).tolist() for g in grads]}, eta central difference {fd_eta:.6g}")
+        rec.update({f"{name}__{k}": np.asarray(v) for k, v in zip(LON_INPUTS, inputs)})
+        rec.update({f"{name}__carry_{k}": np.asarray(v) for k, v in state._asdict().items()})
+        rec.update({f"{name}__adjust_{k}": np.asarray(v) for k, v in adj._asdict().items()})
+        rec.update({f"{name}__grad_{k}": np.asarray(v) for k, v in grads._asdict().items()})
+        rec.update({f"{name}__{k}": np.asarray(v) for k, v in extra.items()})
+        rec.update({f"{name}__loss": np.asarray(loss), f"{name}__fd_eta": fd_eta,
+                    f"{name}__opt_u": np.asarray(out.opt_u), f"{name}__threshold": thr,
+                    f"{name}__iter_num": spec.iter_num})
+    np.savez_compressed(path, cases=np.asarray(LON_STEP_CASES), **rec)
+
+
+def write_lon_ticks_golden(path: str) -> None:
+    """LON_TICKS ticks of JAX's examples/LON/LON_corridor.py:run_episode on
+    corridor/diff with the near branch forced (its COLLISION_THRESHOLD set
+    to LON_NEAR): each tick's robot state, the inputs and carried state it
+    differentiates, the loss, the grads, and the weights before and after
+    the tuner's update."""
+    _jax_setup()
+    sys.path.insert(0, os.path.join(ROOT, "examples"))
+    from LON import LON_corridor as LC
+
+    from neupan_tpu.lon import LONTuner
+    from neupan_tpu.planner import NeuPan
+
+    rec = {k: [] for k in ("robot_state", *LON_INPUTS, *CARRY, "loss",
+                           *(f"adjust_{f}" for f in ("q_s", "p_u", "eta", "d_max", "d_min")),
+                           *(f"grad_{f}" for f in ("q_s", "p_u", "eta", "d_max", "d_min")),
+                           *(f"adjust_after_{f}" for f in ("q_s", "p_u", "eta", "d_max",
+                                                           "d_min")))}
+    step = LC.step_loss_and_grad
+
+    def recorded_step(spec, params, G, h, adjust, nom_s, nom_u, ref_s, ref_us, pts, vels,
+                      mask, state, **kw):
+        loss, grads, out = step(spec, params, G, h, adjust, nom_s, nom_u, ref_s, ref_us,
+                                pts, vels, mask, state, **kw)
+        for k, v in zip(LON_INPUTS, (nom_s, nom_u, ref_s, ref_us, pts, vels, mask)):
+            rec[k].append(np.asarray(v))
+        for k in CARRY:
+            rec[k].append(np.asarray(getattr(state, k[len("carry_"):])))
+        for f in adjust._fields:
+            rec[f"adjust_{f}"].append(np.asarray(getattr(adjust, f)))
+            rec[f"grad_{f}"].append(np.asarray(getattr(grads, f)))
+        rec["loss"].append(np.asarray(loss))
+        return loss, grads, out
+
+    class RecordedTuner(LONTuner):
+        def update(self, adjust, grads):
+            new = super().update(adjust, grads)
+            for f in new._fields:
+                rec[f"adjust_after_{f}"].append(np.asarray(getattr(new, f)))
+            return new
+
+    base = os.path.join(ROOT, "examples", *LON_CORRIDOR.split("/"))
+    planner = NeuPan.init_from_yaml(os.path.join(base, "planner.yaml"))
+    planner.stuck_enabled = False
+    env_get = LC.load_env
+
+    def recorded_env(*a, **kw):
+        env = env_get(*a, **kw)
+        get_state = env.get_robot_state
+
+        def state():
+            s = get_state()
+            if len(rec["robot_state"]) == len(rec["loss"]):
+                rec["robot_state"].append(np.asarray(s, np.float64))
+            return s
+
+        env.get_robot_state = state
+        return env
+
+    saved = LC.step_loss_and_grad, LC.MAX_STEPS, LC.COLLISION_THRESHOLD, LC.load_env
+    LC.step_loss_and_grad, LC.MAX_STEPS, LC.COLLISION_THRESHOLD, LC.load_env = (
+        recorded_step, LON_TICKS, LON_NEAR, recorded_env)
+    try:
+        losses, _ = LC.run_episode(planner, RecordedTuner(planner.adjust, lr=5e-3), base)
+    finally:
+        LC.step_loss_and_grad, LC.MAX_STEPS, LC.COLLISION_THRESHOLD, LC.load_env = saved
+    print(f"lon_ticks: losses {losses}")
+    np.savez_compressed(path, ticks=len(losses), threshold=LON_NEAR, lr=5e-3,
+                        **{k: np.stack(v) for k, v in rec.items()})
+
+
 WRITERS = {
     "planner_step": lambda p: write_step_golden(p, "fused"),
     "qp_solve": write_qp_golden,
@@ -466,6 +718,9 @@ WRITERS = {
        for name in (*LOOP_SCENARIOS, *EPISODES)},
     "qp_reverse_acker_warm": write_warm_start_golden,
     "plan_corridor_acker": write_plan_sensitivity_golden,
+    "qp_vjp": write_qp_vjp_golden,
+    "lon_step": write_lon_step_golden,
+    "lon_ticks_corridor_diff": write_lon_ticks_golden,
 }
 
 

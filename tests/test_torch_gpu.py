@@ -548,6 +548,53 @@ def test_step_on_the_card_matches_cpu_and_launches_every_kernel(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("iter_num", [1, 2])
+def test_differentiated_step_on_the_card_matches_cpu(cuda, iter_num):
+    """LON's differentiated step (the planner-step golden's first call, the
+    near branch of the distance loss forced): loss and grads w.r.t.
+    AdjustParams on the card within 1e-3 (relative to the largest grad) of
+    the CPU's; the forward launches the selection and QP kernels and not the
+    fused MLP, which has no backward."""
+    from neupan_torch.lon import step_loss_and_grad
+    from neupan_torch.models import load_checkpoint
+    from neupan_torch.ops.nrmp import AdjustParams, NRMPSpec
+    from neupan_torch.ops.pan import PANSpec
+    from neupan_torch.parallel import batched_init_state
+
+    with np.load(os.path.join(ROOT, "tests", "golden", "torch", "planner_step.npz")) as g:
+        g = {k: torch.from_numpy(g[k]) for k in g.files}
+    T, P, K, B = (int(g[k]) for k in "TPKB")
+    robot = Robot.create(receding=T, step_time=0.1, **ROBOT)
+    nrmp = NRMPSpec(T=T, K=K, kinematics="diff", speed_bound=tuple(robot.speed_bound[:, 0]),
+                    acce_bound=tuple(robot.acce_bound[:, 0]))
+    spec = PANSpec(robot=robot, nrmp=nrmp, dune_max_num=P, iter_num=iter_num)
+    ckpt = os.path.join(ROOT, "examples/model/diff_robot_default/model.npz")
+    args = [g[k] for k in ("nom_s", "nom_u", "ref_s", "ref_us", "pts1", "vels1", "mask1")]
+    adjust = AdjustParams(*(torch.tensor(v) for v in (1.0, 1.0, 10.0, 1.0, 0.1)))
+
+    def run(dev):
+        return step_loss_and_grad(spec, load_checkpoint(ckpt, dev), *robot.tensors(dev),
+                                  AdjustParams(*(t.to(dev) for t in adjust)),
+                                  *(a.to(dev) for a in args), batched_init_state(spec, B, dev),
+                                  collision_threshold=10.0)
+
+    loss_c, grads_c, _ = run("cpu")
+    wrappers = (SE.select_topk_flow, SW.sweep_spd_inverse, AD.admm_iterate, PO.box_candidate,
+                ML.dune_mlp)
+    before = [w.launches for w in wrappers]
+    loss, grads, out = run(cuda)
+    torch.cuda.synchronize()
+    assert [w.launches - n for w, n in zip(wrappers, before)] == [
+        iter_num, 3 * iter_num, 2 * iter_num, 5 * iter_num, 0]
+    assert out.opt_u.is_cuda and not out.opt_u.requires_grad
+    torch.testing.assert_close(loss.cpu(), loss_c, rtol=1e-3, atol=0)
+    scale = max(float(t.abs().max()) for t in grads_c)
+    for f, a, b in zip(AdjustParams._fields, grads, grads_c):
+        assert a.is_cuda
+        assert float((a.cpu() - b).abs().max()) <= 1e-3 * scale, f
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("T,K", [(30, 12), (33, 10)])
 def test_long_horizon_step_on_the_card_takes_the_admitted_routes(cuda, T, K):
     """A batched step where the kernels do not admit every shape (T=30 with

@@ -1,5 +1,6 @@
-"""Guards of the port: no JAX in it, the card by default, and chip_smoke.py's
-refusal to report a result without a card."""
+"""Guards of the port: no JAX in it (nor optax, the JAX package's optimizer
+library, which LON's tuner replaces), the card by default, and
+chip_smoke.py's refusal to report a result without a card."""
 
 import ast
 import os
@@ -13,7 +14,10 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_FILES = sorted(
     [os.path.join(d, f) for d, _, fs in os.walk(os.path.join(ROOT, "neupan_torch"))
-     for f in fs if f.endswith(".py")] + [os.path.join(ROOT, "chip_smoke.py")])
+     for f in fs if f.endswith(".py")] + [os.path.join(ROOT, "chip_smoke.py")]
+    + [os.path.join(ROOT, "examples", "LON", f) for f in sorted(os.listdir(
+        os.path.join(ROOT, "examples", "LON"))) if f.endswith("_torch.py")])
+FORBIDDEN = ("jax", "jaxlib", "neupan_tpu", "optax")
 
 
 def _run(code_or_args, cwd=ROOT, timeout=120):
@@ -34,7 +38,7 @@ def test_port_sources_import_nothing_of_jax(path):
             names = [node.module]
         for name in names:
             root = name.split(".")[0]
-            assert root not in ("jax", "jaxlib", "neupan_tpu"), (path, name)
+            assert root not in FORBIDDEN, (path, name)
 
 
 def test_port_and_chip_smoke_run_without_jax_in_the_process():
@@ -45,7 +49,7 @@ def test_port_and_chip_smoke_run_without_jax_in_the_process():
             + "sys.argv = ['chip_smoke.py', '--help']\n"
             + "try:\n    runpy.run_path('chip_smoke.py', run_name='__main__')\n"
             + "except SystemExit as e:\n    assert e.code in (0, None), e.code\n"
-            + "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'neupan_tpu')]\n"
+            + f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
             + "assert not bad, bad\n"
             # pyyaml is needed by NeuPan.init_from_yaml alone: nothing that
             # chip_smoke.py imports may import it at module level

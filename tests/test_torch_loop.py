@@ -192,24 +192,28 @@ def test_admission_predicates_route_the_qp_stages(monkeypatch):
 @pytest.mark.parametrize("K", [5, 0], ids=["obstacles", "no_obstacles"])
 def test_pan_forward_refuses_gradients_it_would_drop(K):
     """With gradients recorded and an AdjustParams tensor requiring grad the
-    step raises (the QP backward is not ported) instead of returning
-    detached outputs; under no_grad it returns exactly what it returns for
-    weights that need no grad."""
+    step carries a gradient to it (through the QP's backward) instead of
+    returning detached outputs; without a weight that requires grad, or
+    under no_grad, it records no graph and returns bit for bit what it
+    returns for weights that need no grad."""
     T, P, B = 4, 128, 4
     spec, enc, geom, adjust = _setup(T, P, K)
     inp = {k: torch.from_numpy(v) for k, v in step_inputs(7, T, P, max(K, 1), B).items()}
     args = (inp["nom_s"], inp["nom_u"], inp["ref_s"], inp["ref_us"], inp["pts1"],
             inp["vels1"], inp["mask1"], batched_init_state(spec, B, "cpu"))
     out = pan_forward(spec, enc, *geom, adjust, *args)
-    assert not out.opt_u.requires_grad
-    tuned = AdjustParams(*(t.clone().requires_grad_(i == 2) for i, t in enumerate(adjust)))
-    with pytest.raises(RuntimeError, match="backward pass is not ported"):
-        pan_forward(spec, enc, *geom, tuned, *args)
+    assert not out.opt_u.requires_grad and out.opt_u.grad_fn is None
+    tuned = AdjustParams(*(t.clone().requires_grad_(i == 1) for i, t in enumerate(adjust)))
+    out_g = pan_forward(spec, enc, *geom, tuned, *args)
+    assert out_g.opt_u.requires_grad
+    (d_pu,) = torch.autograd.grad(out_g.opt_u[:, 0].sum(), [tuned.p_u])
+    assert torch.isfinite(d_pu) and float(d_pu) != 0.0
+    torch.testing.assert_close(out_g.opt_u.detach(), out.opt_u, rtol=0, atol=0)
     with torch.no_grad():
         out_ng = pan_forward(spec, enc, *geom, tuned, *args)
     for a, b in zip(out, out_ng):
         if isinstance(a, torch.Tensor):
-            assert torch.equal(a, b)
+            assert torch.equal(a, b) and b.grad_fn is None
     for a, b in zip(out.state, out_ng.state):
         assert torch.equal(a, b)
 
