@@ -79,6 +79,12 @@
      at its B=512 shape and at T=30's, peak memory, and 32 scenarios'
      loss and summed grads against the CPU). The forward launches select,
      sweep, admm and polish, and the facade's ticks the fused MLP.
+   * train: DUNE training at full width (``train_path``: 100,000 labeled
+     points, batch 256, the full encoder): the labels and one epoch on the
+     card against the CPU, two more epochs whose loss must fall, ms per
+     epoch and device time per update, a checkpoint loaded back and
+     ``DuneTrainer.test`` through the fused MLP, and ``NeuPan.train_dune``
+     followed by a tick that must run the fused MLP on the trained weights.
 
 Prints the kernels' JSON line, the paths' JSON line, the card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``; the
@@ -175,6 +181,36 @@ LON_SLICE = 32            # scenarios of the B=512 differentiated step rerun on 
 # card vs CPU grads w.r.t. AdjustParams, each field relative to the largest
 # magnitude of the whole gradient: the ROADMAP's bar for the port against JAX
 GRAD_RTOL = 1e-3
+# the train path: DUNE training at full width (the JAX trainer's defaults)
+TRAIN_POINTS, TRAIN_BATCH, TRAIN_LR = 100000, 256, 5e-5
+TRAIN_EPOCHS_CARD = 3          # epoch 0 held against the CPU, then two more on the card
+TRAIN_PROFILE_STEPS = 50
+TRAIN_TEST_SIZES = (1000, 10000, 100000)
+TRAIN_FACADE_POINTS = 20000
+# labels card vs CPU: d to 1e-5 (1 + d) everywhere, mu to 1e-5 where the active
+# faces agree; a point whose projection sits on the 1e-4 (1 + |h|) threshold of a
+# second face may flip on a rounding, at most this many of the 100,000
+TRAIN_LABEL_FLIPS = 10
+# one full-width epoch card vs CPU (312 adam_l2 updates at lr 5e-5 from the same
+# init on the same draws). The port held against JAX on the CPU
+# (tests/test_torch_training.py, 24 updates at lr 1e-3) agrees to 3e-7 relative in
+# the loss terms and to 5e-6 of lr x steps in the weights; an epoch is 13 times as
+# many updates and the card sums in other orders, so: the loss terms to 1e-4
+# relative, the weights to 1e-3 of lr x steps, with at most 1% of them beyond it
+# (a gradient element rounding across zero turns Adam's sign-like step) and none
+# beyond 0.1 of lr x steps
+TRAIN_LOSS_RTOL, TRAIN_W_TIGHT, TRAIN_W_CAP, TRAIN_W_BEYOND = 1e-4, 1e-3, 0.1, 0.01
+# the fused MLP against the module on trained weights: the mlp path's bound
+TRAIN_MLP_ATOL = 1e-5
+# examples/dune_train/dune_train_diff.yaml (held equal by tests/test_torch_training.py)
+DUNE_TRAIN_DIFF = {
+    "robot": {"kinematics": "diff", "max_speed": [8, 1], "max_acce": [8, 3], "length": 1.6,
+              "width": 2.0},
+    "pan": {"dune_max_num": 100, "nrmp_max_num": 10},
+    "train": {"direct_train": True, "model_name": "diff_robot_default", "data_size": 100000,
+              "data_range": [-25, -25, 25, 25], "batch_size": 256, "epoch": 5000,
+              "valid_freq": 100, "save_freq": 500, "lr": "5e-5", "lr_decay": 0.5,
+              "decay_freq": 1500}}
 
 
 def fail(msg: str) -> None:
@@ -1413,6 +1449,197 @@ def lon_path(torch, dev):
     return launches, report
 
 
+def train_path(torch, dev):
+    """DUNE training on the card at full width (``neupan_torch/training``):
+    the diff robot's labels, epochs of batch 256 over 80,000 of 100,000
+    points with adam_l2 at lr 5e-5, the full encoder (2 -> 32 x5 -> 4).
+
+    a. Labels of 100,000 seeded points on the card and on the CPU: d to
+       1e-5 (1 + d), points with other active faces counted (at most
+       TRAIN_LABEL_FLIPS), mu to 1e-5 on the rest; the labels' device time.
+    b. One epoch (312 updates) from ObsPointNet.seeded on the card and on
+       the CPU with the same permutation and rotations (drawn on the card):
+       loss terms and weights to TRAIN_LOSS_RTOL and TRAIN_W_*; two more
+       epochs on the card, whose summed loss must fall from epoch 0 to 2.
+    c. ms per epoch (host clock, ending in the epoch's one read), device
+       busy ms and kernels per update (a profiled window of
+       TRAIN_PROFILE_STEPS updates, run with ``torch.cuda``'s sync debug
+       mode at "error": no update may wait for the card), the idle share.
+    d. The trained encoder saved and loaded back (load_checkpoint), then
+       ``DuneTrainer.test`` at 1,000, 10,000 and 100,000 points: the fused
+       MLP kernel against the module to TRAIN_MLP_ATOL.
+    e. A planner built from dune_train_diff.yaml's values (direct_train)
+       runs ``train_dune(epoch=1, data_size=20000)`` and plans one tick: the
+       tick must launch the fused MLP, and on the tick's points the kernel
+       must equal the trained module (and differ from the seeded init).
+
+    The launch counts cover DuneTrainer.test and the facade's tick; the
+    comparisons of the kernel with the module run after them.
+    """
+    import copy
+    import shutil
+    import tempfile
+
+    from neupan_torch import NeuPan
+    from neupan_torch.config import planner_kwargs
+    from neupan_torch.models import ObsPointNet, load_checkpoint, save_checkpoint, to_jax_params
+    from neupan_torch.ops import dune as D
+    from neupan_torch.ops.kernels.mlp import dune_mlp
+    from neupan_torch.robot import Robot
+    from neupan_torch.training import DuneTrainer
+    from neupan_torch.training.dune_train import run_epoch
+    from neupan_torch.training.labels import polygon_labels
+    from neupan_torch.training.optim import Adam, exponential_decay
+
+    cpu = torch.device("cpu")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_", dir=os.path.join(ROOT, "build"))
+    robot = Robot.create(receding=10, step_time=0.1, **DUNE_TRAIN_DIFF["robot"])
+    trainer = DuneTrainer(robot.G, robot.h, tmp, device=dev)
+    G, h = trainer.G, trainer.h
+    report = {}
+
+    # a. labels
+    pts_c = torch.tensor(np.random.default_rng(0).uniform(-25, 25, (TRAIN_POINTS, 2)),
+                         dtype=torch.float32)
+    pts = pts_c.to(dev)
+    mu_c, d_c, act_c = polygon_labels(G.cpu(), h.cpu(), pts_c)
+    mu, d, act = polygon_labels(G, h, pts)
+    torch.cuda.synchronize()
+    mu, d, act = mu.cpu(), d.cpu(), act.cpu()
+    d_err = float(((d - d_c).abs() / (1 + d_c)).max())
+    same = (act == act_c).all(dim=1)
+    flips = int((~same).sum())
+    mu_err = float((mu - mu_c)[same].abs().max())
+    check(d_err <= 1e-5 and flips <= TRAIN_LABEL_FLIPS and mu_err <= 1e-5,
+          f"train labels card vs CPU: d {d_err} (of 1 + d), mu {mu_err}, {flips} points "
+          f"with other active faces")
+    busy_us, n_kernels = profile_kernels(torch, lambda: polygon_labels(G, h, pts))
+    report["labels"] = {"points": TRAIN_POINTS, "d_card_vs_cpu_rel": d_err,
+                        "mu_card_vs_cpu": mu_err, "active_set_flips": flips,
+                        "ms": time_ms(torch, lambda: polygon_labels(G, h, pts), 5),
+                        "device_busy_ms": busy_us / 1e3, "device_kernels": n_kernels}
+
+    # b. one epoch card vs CPU, then two more on the card
+    n_train = int(0.8 * TRAIN_POINTS)
+    nb = n_train // TRAIN_BATCH
+    data_c = tuple(a[:n_train] for a in (pts_c, mu_c, d_c))
+    data = tuple(a.to(dev) for a in data_c)
+    sched = exponential_decay(TRAIN_LR, 1500 * nb, 0.5)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    net, net_c = (ObsPointNet.seeded(2, G.shape[0], seed=0, device=d_) for d_ in (dev, cpu))
+    opt, opt_c = Adam(list(net.parameters()), sched), Adam(list(net_c.parameters()), sched)
+    epochs, epoch_ms = [], []
+    for e in range(TRAIN_EPOCHS_CARD):
+        perm, thetas, _ = trainer.draws(gen, n_train, nb, TRAIN_BATCH)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        terms = run_epoch(net, opt, data, perm, thetas, G, h).cpu()
+        epoch_ms.append((time.perf_counter() - t0) * 1e3)
+        epochs.append(terms)
+        if e == 0:
+            w0 = to_jax_params(net)
+            t0 = time.perf_counter()
+            terms_c = run_epoch(net_c, opt_c, data_c, perm.cpu(), thetas.cpu(), G.cpu(), h.cpu())
+            cpu_epoch_ms = (time.perf_counter() - t0) * 1e3
+    loss_rel = float(((epochs[0] - terms_c).abs() / terms_c.abs()).max())
+    w_cpu = to_jax_params(net_c)
+    diff = np.concatenate([np.abs(w0[k] - w_cpu[k]).ravel() for k in w_cpu])
+    scale = TRAIN_LR * nb
+    beyond = int((diff > TRAIN_W_TIGHT * scale).sum())
+    check(loss_rel <= TRAIN_LOSS_RTOL, f"train epoch 0: loss terms card vs CPU differ by "
+          f"{loss_rel} relative: {epochs[0].tolist()} vs {terms_c.tolist()}")
+    check(beyond <= TRAIN_W_BEYOND * diff.size and float(diff.max()) <= TRAIN_W_CAP * scale,
+          f"train epoch 0: weights card vs CPU differ by up to {float(diff.max())} "
+          f"({beyond} of {diff.size} beyond {TRAIN_W_TIGHT * scale})")
+    sums = [float(t.sum()) for t in epochs]
+    check(sums[-1] < sums[0], f"train: the summed loss did not fall over the epochs: {sums}")
+
+    # c. device time of TRAIN_PROFILE_STEPS updates, which must not wait for the
+    # card: any synchronizing call among them raises under the sync debug mode
+    perm, thetas, _ = trainer.draws(gen, n_train, TRAIN_PROFILE_STEPS, TRAIN_BATCH)
+
+    def window():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return run_epoch(net, opt, data, perm, thetas, G, h)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    busy_us, n_kernels = profile_kernels(torch, window)
+    ms_epoch = float(np.median(epoch_ms))
+    busy_step = busy_us / 1e3 / TRAIN_PROFILE_STEPS
+    report["epoch"] = {
+        "updates": nb, "batch": TRAIN_BATCH, "lr": TRAIN_LR, "ms_per_epoch": epoch_ms,
+        "ms_per_epoch_median": ms_epoch, "cpu_ms_per_epoch": cpu_epoch_ms,
+        "loss_terms": [t.tolist() for t in epochs], "loss_terms_cpu_epoch0": terms_c.tolist(),
+        "loss_card_vs_cpu_rel": loss_rel, "weights_card_vs_cpu_max": float(diff.max()),
+        "weights_beyond_tight": beyond, "weights": int(diff.size),
+        "weights_tight_bound": TRAIN_W_TIGHT * scale,
+        "device_busy_ms_per_update": busy_step, "sync_free_updates": TRAIN_PROFILE_STEPS,
+        "device_kernels_per_update": n_kernels / TRAIN_PROFILE_STEPS,
+        "device_idle_share": 1.0 - busy_step * nb / ms_epoch,
+        "extrapolated_5000_epochs_h": ms_epoch * 5001 / 3.6e6}
+
+    # d. checkpoint round trip, DuneTrainer.test through the fused MLP
+    path = os.path.join(tmp, "model_chip_smoke.npz")
+    save_checkpoint(path, net)
+    loaded = load_checkpoint(path, device=dev)
+    back = to_jax_params(loaded)
+    check(all(np.array_equal(back[k], v) for k, v in to_jax_params(net).items()),
+          "train: the checkpoint did not load back bit for bit")
+
+    # e. the facade: train_dune, then one tick with the trained weights
+    planner = NeuPan(**planner_kwargs(DUNE_TRAIN_DIFF, ipath=dict(_OPEN_IPATH)))
+    seeded = copy.deepcopy(planner.encoder)
+    tick_points = []
+
+    def spy(encoder, points):
+        tick_points.append(points.detach().clone())
+        return dune_mlp(encoder, points)
+
+    def run():
+        results = trainer.test(loaded, data_size_list=TRAIN_TEST_SIZES)
+        t0 = time.perf_counter()
+        planner.train_dune(epoch=1, data_size=TRAIN_FACADE_POINTS,
+                           checkpoint_dir=os.path.join(tmp, "facade"))
+        torch.cuda.synchronize()
+        train_dune_s = time.perf_counter() - t0
+        n0 = dune_mlp.launches
+        D.dune_mlp = spy
+        try:
+            action = tick(planner, np.zeros((3, 1)),
+                          np.array([[3.0, 4.0, 5.0, 6.0], [0.5, -0.5, 1.0, -1.5]]))["action"]
+        finally:
+            D.dune_mlp = dune_mlp
+        return results, train_dune_s, dune_mlp.launches - n0, action
+
+    (results, train_dune_s, tick_mlp, action), launches = counted(
+        torch, "train", dict(PER_STEP, mlp=PER_STEP["mlp"] + 12 * len(TRAIN_TEST_SIZES)), run)
+    check(tick_mlp == PER_STEP["mlp"] and len(tick_points) == PER_STEP["mlp"],
+          f"train: the facade's tick launched the fused MLP {tick_mlp} times")
+    errs = [r["kernel_vs_module_max_abs"] for r in results]
+    check(max(errs) <= TRAIN_MLP_ATOL,
+          f"train: DuneTrainer.test, kernel vs module {errs} > {TRAIN_MLP_ATOL}")
+    tick_err, tick_seeded = 0.0, float("inf")
+    with torch.no_grad():
+        for p in tick_points:
+            got = dune_mlp(planner.encoder, p)
+            tick_err = max(tick_err, float((got - planner.encoder(p)).abs().max()))
+            tick_seeded = min(tick_seeded, float((got - seeded(p)).abs().max()))
+    check(tick_err <= TRAIN_MLP_ATOL and tick_seeded > TRAIN_MLP_ATOL,
+          f"train: the tick's duals are {tick_err} from the trained module and "
+          f"{tick_seeded} from the seeded init")
+    report["test"] = results
+    report["facade"] = {"train_dune_s": train_dune_s, "points": TRAIN_FACADE_POINTS,
+                        "tick_mlp_launches": tick_mlp, "action": action[:, 0].tolist(),
+                        "kernel_vs_trained_module": tick_err,
+                        "kernel_vs_seeded_init_min": tick_seeded}
+    shutil.rmtree(tmp)
+    print(f"[train] {json.dumps(report)}", file=sys.stderr)
+    return launches, report
+
+
 def profile_kernels(torch, run):
     """Device kernel time (us) and kernel count over one call of ``run``."""
     from torch.autograd import DeviceType
@@ -1519,6 +1746,8 @@ def main() -> None:
     by_path["lon"], report["lon"] = lon_path(torch, dev)
     for name in ("select", "sweep", "admm", "polish"):
         check(by_path["lon"][name] > 0, f"lon path: {name} was not launched")
+    by_path["train"], report["train"] = train_path(torch, dev)
+    check(by_path["train"]["mlp"] > 0, "train path: mlp was not launched")
     card = card_name_and_power()
 
     entries = []

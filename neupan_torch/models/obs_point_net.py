@@ -6,7 +6,9 @@ named ``MLP`` at the reference indices (Linear at 0, 3, 5, 8, 10, 13;
 LayerNorm at 1, 6, 11), so a reference ``.pth`` state dict loads with
 ``load_state_dict`` as it is. The JAX package's ``.npz`` checkpoints
 (``w_i`` stored (in, out), ``ln{j}_scale``/``ln{j}_bias``) load through
-``from_jax_params``.
+``from_jax_params``; ``to_jax_params`` is its inverse, and
+``save_checkpoint`` writes that dict as the JAX package does, so each
+package loads the other's ``.npz``.
 """
 
 from __future__ import annotations
@@ -75,6 +77,27 @@ class ObsPointNet(nn.Module):
             state[f"MLP.{idx}.bias"] = torch.tensor(np.asarray(params[f"ln{j}_bias"], np.float32))
         net.load_state_dict(state)
         return net.to(dev).eval()
+
+
+def to_jax_params(net: ObsPointNet) -> Dict[str, np.ndarray]:
+    """The JAX package's parameter dict of ``net`` (float32 numpy, ``w_i``
+    stored (in, out)), in the order of its ``init_params``: the inverse of
+    ``ObsPointNet.from_jax_params``."""
+    seq, params = net.MLP, {}
+    as_np = lambda t: t.detach().to("cpu", torch.float32).numpy().copy()
+    for i, idx in enumerate(_LINEAR_IDX):
+        params[f"w{i}"] = as_np(seq[idx].weight.T)
+        params[f"b{i}"] = as_np(seq[idx].bias)
+    for j, idx in enumerate(_LN_IDX):
+        params[f"ln{j}_scale"] = as_np(seq[idx].weight)
+        params[f"ln{j}_bias"] = as_np(seq[idx].bias)
+    return params
+
+
+def save_checkpoint(path: str, net: ObsPointNet) -> None:
+    """Write ``net`` as a ``.npz`` that ``neupan_tpu.models.obs_point_net.
+    load_checkpoint`` and ``load_checkpoint`` below both read."""
+    np.savez(path, **to_jax_params(net))
 
 
 def load_checkpoint(path: str, device=None) -> ObsPointNet:

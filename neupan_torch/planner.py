@@ -4,8 +4,9 @@ The surface of the reference ``neupan`` class: ``init_from_yaml``,
 ``forward(state, points, velocities)``, ``scan_to_point[_velocity]``, path
 setters, ``update_adjust_parameters``, ``reset``, and the read-only
 properties (min_distance / dune_points / nrmp_points / initial_path /
-adjust_parameters / waypoints / opt_trajectory / ref_trajectory).
-``train_dune`` is not ported yet and raises.
+adjust_parameters / waypoints / opt_trajectory / ref_trajectory), and
+``train_dune``, which trains the planner's encoder in place
+(``neupan_torch/training``).
 
 The tick itself runs without gradients (the fused MLP kernel on the card);
 LON (``neupan_torch/lon.py``, ``examples/LON/*_torch.py``) differentiates
@@ -445,10 +446,24 @@ class NeuPan:
     # ------------------------------------------------------------------
 
     def train_dune(self, **overrides):
-        """Offline DUNE training for this robot geometry: not ported yet."""
-        raise NotImplementedError(
-            "DUNE training is not ported to neupan_torch yet (ROADMAP.md, Queue 1 "
-            "item 12); train with neupan_tpu and load the .npz checkpoint")
+        """Offline DUNE training for this robot geometry on the planner's
+        device (``neupan_torch/training``): ``train_kwargs`` with
+        ``overrides`` on top; ``model_name`` and ``checkpoint_dir`` (default
+        ``<cwd>/model/<model_name>``) name where the checkpoints go. Trains
+        ``self.encoder`` in place, so the next tick plans with the trained
+        weights; returns the last checkpoint's path."""
+        from neupan_torch.training import DuneTrainer
+
+        kwargs = dict(self.dune_train_kwargs)
+        kwargs.update(overrides)
+        model_name = kwargs.pop("model_name", self.robot.name)
+        checkpoint_dir = kwargs.pop(
+            "checkpoint_dir", os.path.join(os.getcwd(), "model", model_name))
+        trainer = DuneTrainer(self.G.cpu().numpy(), self.h.cpu().numpy(), checkpoint_dir,
+                              device=self._device)
+        self.encoder, path = trainer.start(encoder=self.encoder, **kwargs)
+        print(f"Complete Training. The model is saved in {path}")
+        return path
 
     def update_adjust_parameters(self, **kwargs):
         """Update q_s / p_u / eta / d_max / d_min at runtime.

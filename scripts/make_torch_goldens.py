@@ -57,6 +57,15 @@ Runs the JAX package on the CPU and writes the files under
   ``examples/LON/LON_corridor.py:run_episode`` with the near branch forced:
   each tick's inputs, carried state, loss, grads and weights before and
   after the tuner's update (~5 min for the three LON goldens).
+* ``dune_labels.npz`` — JAX's ``polygon_distance_labels`` on the diff,
+  acker and trapezoid (``polygon_robot``) geometries, 4,096 seeded points
+  each (inside, near each vertex, far out), and ``dual_ascent_labels`` on
+  256 points of the diff geometry.
+* ``dune_train.npz`` — JAX's ``DuneTrainer.start`` at 2,048 points, batch
+  256, 4 epochs, the lr halved every 2 epochs, with ``adam_l2`` and with
+  ``adamw``: every random draw (replayed from the trainer's key splits and
+  held to its results.txt), the per-epoch loss terms and the weights
+  (~1 min for both DUNE goldens).
 
 Compiling the JAX step and the accurate warm-start solves takes a few
 minutes on a CPU.
@@ -708,6 +717,191 @@ def write_lon_ticks_golden(path: str) -> None:
                         **{k: np.stack(v) for k, v in rec.items()})
 
 
+# -- DUNE training -------------------------------------------------------------
+
+# scripts/train_dune_tpu.py's three geometries
+DUNE_GEOMETRIES = {
+    "diff": dict(kinematics="diff", length=1.6, width=2.0),
+    "acker": dict(kinematics="acker", length=4.6, width=1.6, wheelbase=3.0),
+    "polygon": dict(kinematics="diff", vertices=[[-0.8, -1.0], [-1.8, 1.0], [1.8, 1.0],
+                                                 [0.8, -1.0]]),
+}
+DUNE_LABEL_POINTS, DUNE_LABEL_SEED = 4096, 11
+DUAL_ASCENT_POINTS = 256
+# the trainer golden: 2048 points, batch 256 (6 batches of the 1638 training
+# points), 4 epochs, the lr halved every 2 epochs, validated every epoch
+DUNE_TRAIN = dict(data_size=2048, batch_size=256, epoch=3, decay_freq=2, valid_freq=1,
+                  save_freq=1, lr=1e-3, lr_decay=0.5, seed=0)
+DUNE_OPTIMIZERS = ("adam_l2", "adamw")
+
+
+def dune_label_points(vertices: np.ndarray, seed: int = DUNE_LABEL_SEED,
+                      n: int = DUNE_LABEL_POINTS) -> np.ndarray:
+    """(n, 2) float32 points for a polygon of ``vertices`` (2, V): a quarter
+    inside (random convex combinations), half within 0.5 m of a vertex
+    (spread over the vertices, inside and out), the rest uniform in
+    [-25, 25]^2."""
+    rng = np.random.default_rng(seed)
+    V = vertices.shape[1]
+    n_in, n_near = n // 4, n // 2
+    inside = rng.dirichlet(np.ones(V), n_in) @ vertices.T
+    r = rng.uniform(1e-3, 0.5, n_near)
+    a = rng.uniform(0, 2 * np.pi, n_near)
+    near = vertices.T[np.arange(n_near) % V] + np.stack([r * np.cos(a), r * np.sin(a)], 1)
+    far = rng.uniform(-25, 25, (n - n_in - n_near, 2))
+    return np.concatenate([inside, near, far]).astype(np.float32)
+
+
+def write_dune_labels_golden(path: str) -> None:
+    """JAX's ``polygon_distance_labels`` on each of DUNE_GEOMETRIES
+    (``dune_label_points``) and ``dual_ascent_labels`` (its defaults, 200
+    ascent steps) on DUAL_ASCENT_POINTS points of the diff geometry in
+    [-5, 5]^2 (tests/test_training.py's range)."""
+    _jax_setup()
+    import jax.numpy as jnp
+
+    from neupan_tpu.robot import Robot
+    from neupan_tpu.training.labels import dual_ascent_labels, polygon_distance_labels
+
+    rec = {}
+    for name, kw in DUNE_GEOMETRIES.items():
+        robot = Robot.create(**kw)
+        G, h = np.asarray(robot.G, np.float32), np.asarray(robot.h, np.float32)
+        pts = dune_label_points(robot.vertices)
+        mu, d = polygon_distance_labels(G, h, jnp.asarray(pts))
+        rec.update({f"{name}__G": G, f"{name}__h": h, f"{name}__points": pts,
+                    f"{name}__mu": np.asarray(mu), f"{name}__d": np.asarray(d)})
+    pts = np.random.default_rng(DUNE_LABEL_SEED + 1).uniform(
+        -5, 5, (DUAL_ASCENT_POINTS, 2)).astype(np.float32)
+    mu, d = dual_ascent_labels(rec["diff__G"], rec["diff__h"], jnp.asarray(pts))
+    rec.update(dual__points=pts, dual__mu=np.asarray(mu), dual__d=np.asarray(d))
+    np.savez_compressed(path, geometries=np.asarray(list(DUNE_GEOMETRIES)), **rec)
+
+
+def _dune_replay(G, h, optimizer: str, cfg: dict):
+    """``neupan_tpu/training/dune_train.py:DuneTrainer.start`` replayed with
+    its key splits written out, so that every random draw can be recorded:
+    the init, the data, and per epoch the permutation, the batches'
+    rotations and the validation's rotation. Returns the draws, the
+    per-epoch train and validation loss terms and the final parameters."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    from neupan_tpu.models import obs_point_net
+    from neupan_tpu.training.dune_train import _loss_terms
+    from neupan_tpu.training.labels import polygon_distance_labels
+
+    bs, n = cfg["batch_size"], cfg["data_size"]
+    key = jax.random.PRNGKey(cfg["seed"])
+    key, pk = jax.random.split(key)
+    params = obs_point_net.init_params(pk, 2, G.shape[0])
+    init = {k: np.asarray(v) for k, v in params.items()}
+    key, dk = jax.random.split(key)
+    pts = jax.random.uniform(dk, (n, 2), jnp.float32, minval=jnp.asarray([-25.0, -25.0]),
+                             maxval=jnp.asarray([25.0, 25.0]))
+    mu, d = polygon_distance_labels(G, h, pts)
+    n_train = int(n * 0.8)
+    nb = max(n_train // bs, 1)
+    sched = optax.exponential_decay(cfg["lr"], transition_steps=cfg["decay_freq"] * nb,
+                                    decay_rate=cfg["lr_decay"], staircase=True)
+    if optimizer == "adam_l2":
+        tx = optax.chain(optax.add_decayed_weights(1e-4), optax.scale_by_adam(),
+                         optax.scale_by_learning_rate(sched))
+    else:
+        tx = optax.adamw(sched, weight_decay=1e-4)
+    opt_state = tx.init(params)
+    rot = lambda t: jnp.array([[jnp.cos(t), -jnp.sin(t)], [jnp.sin(t), jnp.cos(t)]])
+
+    @jax.jit
+    def epoch_step(params, opt_state, pb, mb, db, thetas):
+        def body(carry, xs):
+            params, opt_state = carry
+            bp, bmu, bd, theta = xs
+
+            def loss_fn(p):
+                terms = _loss_terms(p, bp, bmu, bd, G, h, rot(theta))
+                return sum(terms), terms
+
+            (_, terms), grads = jax.value_and_grad(loss_fn, has_aux=True)(params)
+            updates, opt_state = tx.update(grads, opt_state, params)
+            return (optax.apply_updates(params, updates), opt_state), jnp.stack(terms)
+
+        (params, opt_state), losses = jax.lax.scan(body, (params, opt_state),
+                                                   (pb, mb, db, thetas))
+        return params, opt_state, jnp.mean(losses, axis=0)
+
+    train = (pts[:n_train], mu[:n_train], d[:n_train])
+    valid = (pts[n_train:], mu[n_train:], d[n_train:])
+    rec = {k: [] for k in ("perm", "thetas", "theta_valid", "train_loss", "valid_loss")}
+    for _ in range(cfg["epoch"] + 1):
+        key, ek, vk = jax.random.split(key, 3)
+        _, sk, rk = jax.random.split(ek, 3)
+        perm = jax.random.permutation(sk, n_train)[: nb * bs]
+        thetas = jax.random.uniform(rk, (nb,), maxval=2 * jnp.pi)
+        theta_v = jax.random.uniform(vk, (), maxval=2 * jnp.pi)
+        batches = [a[perm].reshape(nb, bs, -1) for a in train]
+        params, opt_state, tr = epoch_step(params, opt_state, batches[0], batches[1],
+                                           batches[2][..., 0], thetas)
+        va = jnp.stack(_loss_terms(params, *valid, G, h, rot(theta_v)))
+        for k, v in zip(rec, (perm, thetas, theta_v, tr, va)):
+            rec[k].append(np.asarray(v))
+    first = [a[rec["perm"][0][:bs]] for a in train]
+    fixed = _loss_terms(init, *first, G, h, rot(rec["thetas"][0][0]))
+    return dict(init=init, pts=np.asarray(pts), mu=np.asarray(mu), d=np.asarray(d),
+                fixed_loss=np.asarray(jnp.stack(fixed)), final={k: np.asarray(v) for k, v in
+                                                               params.items()},
+                sched=np.asarray([sched(k) for k in range((cfg["epoch"] + 1) * nb)]),
+                **{k: np.stack(v) for k, v in rec.items()})
+
+
+def write_dune_train_golden(path: str) -> None:
+    """JAX's ``DuneTrainer.start`` on the diff geometry at DUNE_TRAIN, once
+    with each of DUNE_OPTIMIZERS: the init, the data and labels, every
+    epoch's permutation and rotations, the per-epoch train and validation
+    loss terms, the final weights, the learning rate of every update and
+    the loss terms of the init on the first batch. The draws come from a
+    replay of the trainer's key splits (``_dune_replay``), held here to the
+    trainer's own results.txt lines and final weights."""
+    import re
+    import tempfile
+
+    _jax_setup()
+    from neupan_tpu.robot import Robot
+    from neupan_tpu.training.dune_train import DuneTrainer
+
+    robot = Robot.create(**DUNE_GEOMETRIES["diff"])
+    G, h = np.asarray(robot.G, np.float32), np.asarray(robot.h, np.float32)
+    rec = dict(G=G, h=h, **{k: np.asarray(v) for k, v in DUNE_TRAIN.items()})
+    num = r"([0-9.]+e[-+][0-9]+)"
+    line = re.compile(rf"Epoch (\d+)/\d+ lr {num} \| mu {num}/{num} dist {num}/{num} "
+                      rf"fa {num}/{num} fb {num}/{num}")
+    for opt in DUNE_OPTIMIZERS:
+        with tempfile.TemporaryDirectory() as tmp:
+            params, _ = DuneTrainer(G, h, tmp).start(optimizer=opt, **DUNE_TRAIN)
+            with open(os.path.join(tmp, "results.txt")) as fh:
+                logged = [m.groups() for m in map(line.search, fh) if m]
+        rep = _dune_replay(G, h, opt, DUNE_TRAIN)
+        # the replay is the trainer: its losses print as the trainer's lines, its
+        # weights are the trainer's to float32 rounding of the jitted epochs
+        assert len(logged) == DUNE_TRAIN["epoch"] + 1, logged
+        for i, groups in enumerate(logged):
+            tr, va = rep["train_loss"][i], rep["valid_loss"][i]
+            want = [f"{x:.2e}" for pair in zip(tr, va) for x in pair]
+            assert list(groups[2:]) == want, (opt, i, groups, want)
+        for k, v in rep["final"].items():
+            np.testing.assert_allclose(v, np.asarray(params[k]), rtol=0, atol=1e-6,
+                                       err_msg=f"{opt} {k}")
+        for k, v in rep.items():
+            if isinstance(v, dict):
+                rec.update({f"{opt}__{k}__{n}": a for n, a in v.items()})
+            else:
+                rec[f"{opt}__{k}"] = v
+        rec.update({f"{opt}__trainer_final__{k}": np.asarray(v) for k, v in params.items()})
+        print(f"dune_train {opt}: train losses {rep['train_loss'].sum(1)}")
+    np.savez_compressed(path, optimizers=np.asarray(DUNE_OPTIMIZERS), **rec)
+
+
 WRITERS = {
     "planner_step": lambda p: write_step_golden(p, "fused"),
     "qp_solve": write_qp_golden,
@@ -721,6 +915,8 @@ WRITERS = {
     "qp_vjp": write_qp_vjp_golden,
     "lon_step": write_lon_step_golden,
     "lon_ticks_corridor_diff": write_lon_ticks_golden,
+    "dune_labels": write_dune_labels_golden,
+    "dune_train": write_dune_train_golden,
 }
 
 

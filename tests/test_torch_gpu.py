@@ -674,3 +674,118 @@ def test_corridor_ticks_through_the_sim_on_the_card(cuda):
         assert abs(planner.min_distance - on_cpu.min_distance) <= 1e-4
         env.step(action)
     assert not env.collided and env.steps == 3
+
+
+# -- DUNE training on the card ---------------------------------------------------
+
+def _dune_data(dev, n=6000, seed=0):
+    """Seeded points in [-25, 25]^2 with their labels (on the CPU, moved)."""
+    from neupan_torch.training import polygon_distance_labels
+
+    robot = Robot.create(receding=10, step_time=0.1, **ROBOT)
+    G, h = (t32(a) for a in (robot.G, robot.h))
+    pts = t32(np.random.default_rng(seed).uniform(-25, 25, (n, 2)))
+    mu, d = polygon_distance_labels(G, h, pts)
+    return [a.to(dev) for a in (G, h, pts, mu, d)]
+
+
+@pytest.mark.gpu
+def test_dune_labels_on_the_card_match_cpu(cuda):
+    """d to 1e-5 (1 + d); the same active faces on every point; mu to 1e-5."""
+    from neupan_torch.training.labels import polygon_labels
+
+    G, h, pts, mu_c, d_c = _dune_data("cpu", n=100000, seed=1)
+    _, _, act_c = polygon_labels(G, h, pts)
+    mu, d, act = (a.cpu() for a in polygon_labels(G.to(cuda), h.to(cuda), pts.to(cuda)))
+    assert bool(((d - d_c).abs() <= 1e-5 * (1 + d_c)).all())
+    assert torch.equal(act, act_c)
+    torch.testing.assert_close(mu, mu_c, rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_twenty_training_steps_on_the_card_match_cpu(cuda):
+    """20 adam_l2 updates at batch 256, lr 5e-5, from the same init on the
+    same permutation and rotations: loss terms to 1e-4 relative; weights
+    within 1e-3 lr x steps (1e-6), at most 1% beyond, all within 0.1 lr x
+    steps (chip_smoke.py's train path states the same bound for an epoch)."""
+    from neupan_torch.models import ObsPointNet, to_jax_params
+    from neupan_torch.training.dune_train import run_epoch
+    from neupan_torch.training.optim import Adam, exponential_decay
+
+    rng = np.random.default_rng(2)
+    perm = torch.as_tensor(rng.permutation(6000)[:20 * 256])
+    thetas = t32(rng.uniform(0, 2 * np.pi, 20))
+    out = {}
+    for dev in ("cpu", cuda):
+        G, h, pts, mu, d = _dune_data(dev)
+        net = ObsPointNet.seeded(2, 4, seed=0, device=dev)
+        opt = Adam(list(net.parameters()), exponential_decay(5e-5, 1500 * 20, 0.5))
+        terms = run_epoch(net, opt, (pts, mu, d), perm.to(dev), thetas.to(dev), G, h)
+        out[str(dev)] = (terms.cpu(), to_jax_params(net))
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4, atol=0)
+    scale = 5e-5 * 20
+    diff = np.concatenate([np.abs(out["cuda"][1][k] - out["cpu"][1][k]).ravel()
+                           for k in out["cpu"][1]])
+    assert (diff > 1e-3 * scale).sum() <= 0.01 * diff.size and diff.max() <= 0.1 * scale
+
+
+@pytest.mark.gpu
+def test_fused_mlp_kernel_on_freshly_trained_weights(cuda, tmp_path):
+    """After two short epochs on the card the kernel (repacked: the
+    parameters' versions moved) equals the module to 1e-5, and
+    DuneTrainer.test runs it."""
+    from neupan_torch.models import ObsPointNet
+    from neupan_torch.training import DuneTrainer
+
+    robot = Robot.create(receding=10, step_time=0.1, **ROBOT)
+    trainer = DuneTrainer(robot.G, robot.h, str(tmp_path))
+    enc = ObsPointNet.seeded(2, 4, seed=0, device=cuda)
+    pts = t32(np.random.default_rng(3).uniform(-25, 25, (50000, 2)), cuda)
+    with torch.no_grad():
+        before = ML.dune_mlp(enc, pts)
+    trainer.start(enc, data_size=5000, epoch=1, batch_size=256, lr=1e-3)
+    n0 = ML.dune_mlp.launches
+    with torch.no_grad():
+        out, ref = ML.dune_mlp(enc, pts), enc(pts)
+    torch.cuda.synchronize()
+    assert ML.dune_mlp.launches == n0 + 1
+    assert float((out - ref).abs().max()) <= 1e-5
+    assert float((out - before).abs().max()) > 1e-3
+    res = trainer.test(enc, data_size_list=(1000,))
+    assert res[0]["kernel_vs_module_max_abs"] <= 1e-5 and res[0]["device"].startswith("cuda")
+
+
+@pytest.mark.gpu
+def test_train_dune_then_a_facade_tick_runs_the_trained_weights(cuda, tmp_path):
+    """NeuPan.train_dune on the card, then one tick: the tick launches the
+    fused MLP kernel, and its duals on the tick's points are the trained
+    module's (to 1e-5), not the seeded init's."""
+    import copy
+
+    import neupan_torch.ops.dune as D
+    from neupan_torch import NeuPan
+
+    yaml_file = os.path.join(ROOT, "examples", "dune_train", "dune_train_diff.yaml")
+    planner = NeuPan.init_from_yaml(yaml_file, ipath={"waypoints": [[0, 0, 0], [20, 0, 0]]})
+    seeded = copy.deepcopy(planner.encoder)
+    planner.train_dune(epoch=1, data_size=5000, lr=1e-3, checkpoint_dir=str(tmp_path))
+    seen = []
+    mlp = ML.dune_mlp
+
+    def spy(encoder, points):
+        seen.append(points.detach().clone())
+        return mlp(encoder, points)
+
+    n0 = mlp.launches
+    D.dune_mlp, saved = spy, D.dune_mlp
+    try:
+        action, _ = planner(np.zeros((3, 1)), np.array([[3.0, 4.0, 5.0], [0.5, -0.5, 1.0]]))
+    finally:
+        D.dune_mlp = saved
+    torch.cuda.synchronize()
+    assert mlp.launches > n0 and seen and np.isfinite(action).all()
+    with torch.no_grad():
+        for pts in seen:
+            got = mlp(planner.encoder, pts)
+            assert float((got - planner.encoder(pts)).abs().max()) <= 1e-5
+            assert float((got - seeded(pts)).abs().max()) > 1e-4

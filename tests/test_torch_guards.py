@@ -1,5 +1,7 @@
 """Guards of the port: no JAX in it (nor optax, the JAX package's optimizer
-library, which LON's tuner replaces), the card by default, and
+library, which LON's tuner and the DUNE trainer's Adam replace; the
+runners of both and scripts/train_dune_torch.py included), the card by
+default, and
 chip_smoke.py's refusal to report a result without a card."""
 
 import ast
@@ -15,8 +17,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_FILES = sorted(
     [os.path.join(d, f) for d, _, fs in os.walk(os.path.join(ROOT, "neupan_torch"))
      for f in fs if f.endswith(".py")] + [os.path.join(ROOT, "chip_smoke.py")]
-    + [os.path.join(ROOT, "examples", "LON", f) for f in sorted(os.listdir(
-        os.path.join(ROOT, "examples", "LON"))) if f.endswith("_torch.py")])
+    + [os.path.join(ROOT, "examples", d, f) for d in ("LON", "dune_train")
+       for f in sorted(os.listdir(os.path.join(ROOT, "examples", d))) if f.endswith("_torch.py")]
+    + [os.path.join(ROOT, "scripts", "train_dune_torch.py")])
 FORBIDDEN = ("jax", "jaxlib", "neupan_tpu", "optax")
 
 

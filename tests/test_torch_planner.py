@@ -205,15 +205,19 @@ def test_scan_to_point_matches_the_jax_facade(velocity):
     np.testing.assert_allclose(p, pj, rtol=0, atol=1e-12)
 
 
-def test_device_none_raises_without_a_card_and_unknown_devices_raise():
+def test_device_none_raises_without_a_card_and_unknown_devices_raise(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         NeuPan.init_from_yaml(CORRIDOR)
     with pytest.raises(RuntimeError):
         NeuPan.init_from_yaml(CORRIDOR, device="no_such_device")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        corridor().train_dune()
+    # the DUNE trainer, NeuPan.train_dune's engine, defaults to the card too
+    from neupan_torch.training import DuneTrainer
+
+    planner = corridor()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DuneTrainer(planner.G.numpy(), planner.h.numpy(), str(tmp_path))
 
 
 def test_missing_checkpoint_raises_and_direct_train_gets_a_seeded_encoder():
