@@ -19,7 +19,9 @@
    trailing slots repeat the lowest-index 1e9 point); the sweep is timed
    as the QP calls it (``spd_inverse_scaled``, the scaling in the kernel)
    and on pre-scaled input, each held to 3e-5 of its plain version at
-   n=30, 33 and 90; the fused MLP is also held
+   n=30, 33, 48, 63 and 90 (48 and 63 also beside the plain version's
+   time); admm also runs at the full-space flagship shape (n=63, m=181,
+   33 equality rows) against its plain version; the fused MLP is also held
    against a float64 evaluation of the same weights, with the diff
    checkpoint and, at full width, with the acker one; its bound is given
    twice, for float32 on the CUDA cores and for the tensor-core design
@@ -67,6 +69,20 @@
      T=33; the polish kernel takes k=90 and 99): the counters must show
      exactly those routes, and opt_u is held against the CPU
      (``LONG_HORIZON_MEDIAN``, ``_MAX``, ``_ABOVE``).
+   * solvers: the QP's paths off the main path (``solvers_path``): three
+     chained B=512 steps with ``ADMMConfig(condense_admm=False)`` (the
+     full-space ADMM on the admm kernel) and one with the generic condensed
+     polish (``elim_n_acc=None``), each against the CPU on 32 scenarios;
+     B=64 steps at T=30 in the full space with the dense and the banded
+     inverse (admm on its plain version); ``solve_qp_batch`` at B=512 on
+     generic QPs, polish on and off, every scenario against the CPU (5e-4);
+     and the facade built with ``pan.admm = {"condense_admm": false}``, 5
+     ticks against a CPU planner. The full-space planner's output moves with
+     float32 rounding, so those cases are held to the CPU's own spread under
+     a 1e-6 change of their inputs (``noise_gate``), the facade to
+     FACADE_FULLSPACE_TOL; the generic polish and the batch to 5e-4. Each
+     reports host ms, device busy ms and kernels per step, and each QP
+     stage's route, counted (kernel, plain, Cholesky, banded).
    * lon: the differentiated planner step and LON's tuning loop
      (``examples/LON/LON_corridor_torch.py:run_episode``): 10 corridor/diff
      tuning ticks with the near branch of the loss forced, each tick's
@@ -171,6 +187,12 @@ B_LONG, LONG_HORIZON_STEPS = 64, 2
 # scenarios flip from run to run: the phase reports them.
 LONG_HORIZON_MEDIAN, LONG_HORIZON_MAX, LONG_HORIZON_ABOVE = 2e-4, 3e-3, 4
 GLUE = "dune._lam_and_distance"   # the profiler's range around that glue
+# facade actions card vs CPU with condense_admm=False, each tick from the card's
+# carried state: the full-space ADMM's float32 iterate, and which polish candidate
+# wins, move with rounding (the JAX package against itself with another inverse
+# route parts by 4.8e-3 on corridor/diff ticks: scripts/exp_fullspace_spread.py),
+# so the bound of tests/test_torch_solvers.py's facade test against JAX
+FACADE_FULLSPACE_TOL = 1e-2
 # the differentiated step (LON): the forward runs the kernels but the encoder as a
 # module (the fused MLP kernel has no backward); the backward launches none
 PER_GRAD_STEP = dict(PER_STEP, mlp=0)
@@ -382,15 +404,64 @@ def wrappers():
 
 
 def twins():
-    """name -> the counter of a plain route that a QP stage takes on a card
-    where its kernel does not admit the shape (``ops/qp.py``'s admission
-    checks): the ADMM and polish twins, and the Cholesky inverse above n=96."""
+    """name -> the counter of a route that a QP stage takes on a card besides
+    its kernel: where the kernel does not admit the shape (``ops/qp.py``'s
+    admission checks) the ADMM and polish twins and the Cholesky inverse
+    above n=96, and the full-space normal matrix's block-tridiagonal inverse
+    with ``ADMMConfig(inverse="banded")`` (library calls, as in JAX)."""
+    from neupan_torch.ops.banded import btd_spd_inverse
     from neupan_torch.ops.kernels.admm import admm_iterate_plain
     from neupan_torch.ops.kernels.polish import box_candidate_plain
     from neupan_torch.ops.kernels.sweep import cholesky_inverse
 
     return {"admm_plain": admm_iterate_plain, "polish_plain": box_candidate_plain,
-            "cholesky": cholesky_inverse}
+            "cholesky": cholesky_inverse, "banded": btd_spd_inverse}
+
+
+def qp_routes(nrmp, cfg, qps):
+    """Launches of each QP stage's route over ``qps`` planner QPs of the NRMP
+    layout ``nrmp`` solved under ``cfg`` (row-layout statics filled), as
+    ``ops/qp.py``'s admission checks route them: the equality Gram inverse;
+    two ADMM phases, condensed (k = n - n_eq, m - n_eq rows) or full-space
+    (n, m), each an inverse (sweep up to MAX_N, Cholesky above, or banded)
+    and the iterations (kernel where ``admm_fits``, else plain); and
+    ``polish_rounds`` candidates, box-eliminating (kernel where
+    ``polish_fits``, else plain, which inverts k and na by Cholesky above
+    MAX_N) or generic condensed (two inverses each, k and n_hard)."""
+    from neupan_torch.ops.kernels.admm import admm_fits
+    from neupan_torch.ops.kernels.polish import polish_fits
+    from neupan_torch.ops.kernels.sweep import MAX_N
+
+    n_eq, n_hard, na = cfg.elim_n_eq, cfg.elim_n_hard, cfg.elim_n_acc
+    n, m = nrmp.n, nrmp.m
+    k = n - n_eq
+    r = dict.fromkeys(("sweep", "cholesky", "banded", "admm", "admm_plain", "polish",
+                       "polish_plain"), 0)
+
+    def invert(size, times=1):
+        r["sweep" if size <= MAX_N else "cholesky"] += times
+
+    invert(n_eq)
+    if cfg.condense_admm:
+        invert(k, 2)
+        fits = admm_fits(k, m - n_eq)
+    else:
+        if cfg.inverse == "banded" and cfg.banded_perm is not None:
+            r["banded"] += 2
+        else:
+            invert(n, 2)
+        fits = admm_fits(n, m)
+    r["admm" if fits else "admm_plain"] += 2
+    rounds = cfg.polish_rounds if cfg.polish else 0
+    if na is None:
+        invert(k, rounds)
+        invert(n_hard, rounds)
+    elif polish_fits(k, na):
+        r["polish"] += rounds
+    else:
+        r["polish_plain"] += rounds
+        r["cholesky"] += rounds * ((k > MAX_N) + (na > MAX_N))
+    return {key: qps * v for key, v in r.items()}
 
 
 def counted(torch, name, expected, run):
@@ -565,12 +636,14 @@ def kernel_phase(torch, dev):
     del all_pts, win, flow
 
     # sweep: what the QP launches, spd_inverse_scaled (the Jacobi scaling, ridge and
-    # unscaling in the kernel), at n=30, 33 (main path) and 90 (T=30), against the
-    # plain version of the fused call on SPD matrices whose diagonal spans four
-    # decades; and the unscaled kernel on the same matrices scaled beforehand
+    # unscaling in the kernel), at n=30, 33 (main path), 48 (the generic condensed
+    # polish's Schur complement over the hard rows), 63 (the full-space normal
+    # matrix and polish Hessian) and 90 (T=30), against the plain version of the
+    # fused call on SPD matrices whose diagonal spans four decades; and the
+    # unscaled kernel on the same matrices scaled beforehand
     sweep_err = 0.0
     res["sweep_by_n"] = {}
-    for n in (30, 33, 90):
+    for n in (30, 33, 48, 63, 90):
         Q = rng.normal(size=(B, n, n))
         sc = 10.0 ** rng.uniform(-2, 2, (B, n, 1))
         M = sc * (Q @ np.swapaxes(Q, 1, 2) / n + np.eye(n)[None]) * np.swapaxes(sc, 1, 2)
@@ -592,6 +665,8 @@ def kernel_phase(torch, dev):
         r = dict(rel_err=rel, rel_err_unscaled=rel_u, ms=graph_ms(torch, lambda: SW.spd_inverse_scaled(M), 20),
                  ms_unscaled=graph_ms(torch, lambda: SW.sweep_spd_inverse(Mt), 20),
                  library_ms=time_ms(torch, lambda: torch.linalg.inv(M), 10), bound_ms=bound(ops, nbytes)[0])
+        if n in (48, 63):
+            r["plain_ms"] = time_ms(torch, lambda: SW.spd_inverse_scaled(M, SW.sweep_spd_inverse_plain), 5)
         if n == 30:
             one = M[:1].contiguous()
             r.update(ms_B1=graph_ms(torch, lambda: SW.spd_inverse_scaled(one)),
@@ -637,6 +712,67 @@ def kernel_phase(torch, dev):
         ms_B1=graph_ms(torch, lambda: AD.admm_iterate(*one, **kw)),
         plain_ms=time_ms(torch, lambda: AD.admm_iterate_plain(*ad_args, **kw), 3),
         library_ms=None, bound=bound(ops, nbytes), bound_B1=bound(*admm_work(1, k, m, iters)))
+
+    # admm at the full-space shape of the flagship QP (condense_admm=False): n=63
+    # variables, m=181 rows. Its 33 equality rows carry rho x 1e3: rhs and the
+    # dual step cancel terms ~1e3 times their result, so one float32 iteration
+    # already parts from float64 by ~3e-3 of y's magnitude, in the plain loop as
+    # in the kernel (sums in another order), and 120 iterations amplify it
+    # (PERF.md section 6). So on that data the kernel must be as accurate
+    # as the plain version against the plain loop in float64 (one iteration, the
+    # largest error of each output within 2x the plain's plus 1e-6 of its
+    # magnitude); 120 iterations on the same shape with one rho per scenario are
+    # held to the main path's bounds; the stiff call is timed.
+    n_f, m_f, eq_f = 63, 181, 33
+    Af = rng.normal(size=(B, m_f, n_f)) * 0.3
+    lf = rng.normal(size=(B, m_f)) - 1
+    softf = np.where(rng.uniform(size=(B, m_f)) < 0.4, 10.0, 0.0)
+    softf[:, :eq_f] = 0.0
+    uf = np.where(softf > 0, 1e20, lf + np.abs(rng.normal(size=(B, m_f))) + 0.5)
+    uf[:, :eq_f] = lf[:, :eq_f]
+    rho_one = np.repeat(rng.uniform(0.5, 2.0, (B, 1)), m_f, axis=1)
+    rho_eq = rho_one.copy()
+    rho_eq[:, :eq_f] *= 1e3
+    Af_t, Pf = f(Af), f(rng.uniform(0.1, 2.0, (B, n_f)))
+
+    def full_args(rho):
+        rho_t = f(rho)
+        Mf = torch.diag_embed(Pf + 1e-6) + torch.bmm((Af_t * rho_t[:, :, None]).transpose(1, 2),
+                                                     Af_t)
+        return (SW.spd_inverse_any(Mf), Af_t, f(rng.normal(size=(B, n_f))), f(lf), f(uf),
+                f(softf), rho_t, f(rng.normal(size=(B, n_f)) * 0.1),
+                f(np.clip(rng.normal(size=(B, m_f)), lf, uf)), f(rng.normal(size=(B, m_f)) * 0.1))
+
+    adf_stiff, adf_one = full_args(rho_eq), full_args(rho_one)
+
+    def against_f64(iters_):
+        k_ = dict(kw, iters=iters_)
+        ref = AD.admm_iterate_plain(*(a.double() for a in adf_stiff), **k_)
+        err = lambda out_: [float((a.double() - r).abs().max()) for a, r in zip(out_, ref)]
+        return (err(AD.admm_iterate(*adf_stiff, **k_)), err(AD.admm_iterate_plain(*adf_stiff, **k_)),
+                [float(r.abs().max()) for r in ref])
+
+    e1_k, e1_p, mag = against_f64(1)
+    e120_k, e120_p, _ = against_f64(iters)
+    out120 = AD.admm_iterate(*adf_one, **kw)
+    outp120 = AD.admm_iterate_plain(*adf_one, **kw)
+    torch.cuda.synchronize()
+    e_wz = max(float((out120[i] - outp120[i]).abs().max()) for i in (0, 1))
+    e_y = float((out120[2] - outp120[2]).abs().max())
+    check(all(k_ <= 2 * p_ + 1e-6 * m_ for k_, p_, m_ in zip(e1_k, e1_p, mag)),
+          f"admm at n={n_f}, m={m_f}, one stiff iteration: kernel {e1_k} from float64, "
+          f"plain {e1_p}")
+    check(e_wz <= 1e-4, f"admm at n={n_f}, m={m_f}: w/z differ from the plain version by {e_wz}")
+    check(bool(((out120[2] - outp120[2]).abs() <= 1e-3 + 1e-2 * outp120[2].abs()).all()),
+          f"admm at n={n_f}, m={m_f}: y differs from the plain version by {e_y}")
+    res["admm_fullspace"] = dict(
+        shape=f"B={B} k={n_f} m={m_f} iters={iters}", max_abs_err=max(e_wz, e_y),
+        stiff_f64_err_wzy={"iters_1": {"kernel": e1_k, "plain": e1_p},
+                           f"iters_{iters}": {"kernel": e120_k, "plain": e120_p}},
+        smem_bytes=AD.smem_bytes(n_f, m_f),
+        ms=graph_ms(torch, lambda: AD.admm_iterate(*adf_stiff, **kw)),
+        plain_ms=time_ms(torch, lambda: AD.admm_iterate_plain(*adf_stiff, **kw), 3),
+        bound_ms=bound(*admm_work(B, n_f, m_f, iters))[0])
 
     # polish: k=30, na=18, refine=7
     na, refine = 18, 7
@@ -775,40 +911,76 @@ def to_cpu(encoder, geom, adjust):
     return cpu, tuple(t.cpu() for t in geom), type(adjust)(*(t.cpu() for t in adjust))
 
 
-def chain_path(torch, dev, name, per_step, reps, with_b1, **spec_kw):
-    """Three chained B=512 steps of one PANSpec variant with the launch
+def perturbed(data, eps=1e-6):
+    """The chained inputs with the reference trajectory scaled by 1 + eps, a
+    change the size of float32 rounding."""
+    return dict(data, ref_s=data["ref_s"] * (1.0 + eps))
+
+
+def noise_gate(name, d_card, d_noise):
+    """Where a path's output moves with float32 rounding (the full-space
+    ADMM: PERF.md section 6), the per-scenario differences card vs CPU
+    ``d_card`` are held to the CPU's own under a 1e-6 change of ref_s
+    (``perturbed``), ``d_noise``, on the same scenario-steps: the median
+    within twice the noise's plus 1e-4, the 90th percentile within twice
+    the noise's plus 5e-4. Returns the numbers."""
+    q = lambda d, p: float(d.flatten().float().quantile(p))
+    med_c, med_n, q90_c, q90_n = q(d_card, 0.5), q(d_noise, 0.5), q(d_card, 0.9), q(d_noise, 0.9)
+    check(med_c <= 2 * med_n + 1e-4 and q90_c <= 2 * q90_n + 5e-4,
+          f"{name}: card vs CPU median {med_c}, 90th percentile {q90_c}; the CPU against itself "
+          f"perturbed: {med_n}, {q90_n}")
+    return {"card_vs_cpu_median": med_c, "card_vs_cpu_q90": q90_c,
+            "card_vs_cpu_max": float(d_card.max()), "cpu_vs_perturbed_median": med_n,
+            "cpu_vs_perturbed_q90": q90_n, "cpu_vs_perturbed_max": float(d_noise.max()),
+            "compared": d_card.numel()}
+
+
+def chain_path(torch, dev, name, per_step, reps, with_b1, steps=STEPS, chaotic=False,
+               **spec_kw):
+    """``steps`` chained B=512 steps of one PANSpec variant with the launch
     counts checked, the first B_CPU scenarios against the CPU, ms/step and
-    the profiler's device time."""
+    the profiler's device time.
+
+    ``chaotic``: the variant's planner output moves by far more than 5e-4
+    under a float32-sized change of its inputs (the full-space ADMM,
+    ``solvers_path``), so opt_u card vs CPU is held by ``noise_gate``."""
     spec, encoder, geom, adjust, data = flagship(torch, dev, B_MAIN, **spec_kw)
     outs, launches = counted(
-        torch, name, {k: v * STEPS for k, v in per_step.items()},
-        lambda: run_chain(torch, spec, encoder, geom, adjust, data, dev=dev))
+        torch, name, {k: v * steps for k, v in per_step.items()},
+        lambda: run_chain(torch, spec, encoder, geom, adjust, data, dev=dev, steps=steps))
     for out in outs:
         check(tuple(out.opt_u.shape) == (B_MAIN, 2, spec.robot.T), "opt_u shape")
         check(bool(torch.isfinite(out.opt_u).all() & torch.isfinite(out.opt_s).all()),
               f"{name} path: non-finite planner output on the card")
 
     # the same chained inputs, first B_CPU scenarios, through the plain versions
-    outs_cpu = run_chain(torch, spec, *to_cpu(encoder, geom, adjust), data,
-                         sl=slice(0, B_CPU), dev=torch.device("cpu"))
-    du = []
-    for i, (o, oc) in enumerate(zip(outs, outs_cpu)):
-        d = float((o.opt_u[:B_CPU].cpu() - oc.opt_u).abs().max())
-        du.append(d)
-        check(d <= 5e-4, f"{name} path, step {i}: opt_u card vs CPU differ by {d} > 5e-4")
-        check(torch.equal(o.nrmp_valid[:B_CPU].cpu(), oc.nrmp_valid),
-              f"{name} path, step {i}: nrmp_valid differs between card and CPU")
+    cpu = to_cpu(encoder, geom, adjust)
+    outs_cpu = run_chain(torch, spec, *cpu, data, sl=slice(0, B_CPU), dev=torch.device("cpu"),
+                         steps=steps)
+    du = [float((o.opt_u[:B_CPU].cpu() - oc.opt_u).abs().max()) for o, oc in zip(outs, outs_cpu)]
+    report = {"B": B_MAIN, "opt_u_card_vs_cpu_max": max(du), "cpu_scenarios": B_CPU}
+    if chaotic:
+        noisy = run_chain(torch, spec, *cpu, perturbed(data), sl=slice(0, B_CPU),
+                          dev=torch.device("cpu"), steps=steps)
+        per = lambda a, b: (a.opt_u[:B_CPU].cpu() - b.opt_u).abs().amax(dim=(1, 2))
+        d_card = torch.stack([per(o, oc) for o, oc in zip(outs, outs_cpu)])
+        d_noise = torch.stack([per(o, oc) for o, oc in zip(noisy, outs_cpu)])
+        report["opt_u"] = noise_gate(f"{name} path", d_card, d_noise)
+    else:
+        for i, (d, o, oc) in enumerate(zip(du, outs, outs_cpu)):
+            check(d <= 5e-4, f"{name} path, step {i}: opt_u card vs CPU differ by {d} > 5e-4")
+            check(torch.equal(o.nrmp_valid[:B_CPU].cpu(), oc.nrmp_valid),
+                  f"{name} path, step {i}: nrmp_valid differs between card and CPU")
 
     ms_main = step_ms(torch, spec, encoder, geom, adjust, data, B_MAIN, reps)
-    steps = {"B": B_MAIN, "ms_per_step": ms_main, "solves_per_s": B_MAIN / ms_main * 1e3,
-             "opt_u_card_vs_cpu_max": max(du), "cpu_scenarios": B_CPU}
+    report.update(ms_per_step=ms_main, solves_per_s=B_MAIN / ms_main * 1e3)
     if with_b1:
         ms_one = step_ms(torch, spec, encoder, geom, adjust, data, 1, reps)
-        steps.update(B1_ms_per_step=ms_one, B1_solves_per_s=1e3 / ms_one)
-    prof, table = profile_step(torch, spec, encoder, geom, adjust, data)
+        report.update(B1_ms_per_step=ms_one, B1_solves_per_s=1e3 / ms_one)
+    prof, table = profile_step(torch, spec, encoder, geom, adjust, data, steps)
     print(f"[{name} path] " + table, file=sys.stderr)
-    steps.update(prof, device_idle_share=1.0 - prof["device_busy_ms_per_step"] / ms_main)
-    return launches, steps
+    report.update(prof, device_idle_share=1.0 - prof["device_busy_ms_per_step"] / ms_main)
+    return launches, report
 
 
 def dune_path(torch, dev):
@@ -962,12 +1134,12 @@ CONFIGS = {
 }
 
 
-def against_cpu(name, kwargs, trace):
+def against_cpu(name, kwargs, trace, tol=5e-4):
     """Feed a CPU planner built from ``kwargs`` the card's states, points and
     velocities tick by tick (each ``trace`` entry: state, points, velocities,
     action, min_distance, flags, and where it holds one, ``carry``: what the
     card's planner carried into the tick, which the CPU planner then starts
-    the tick from): actions must agree to 5e-4, min_distance to 1e-4, the
+    the tick from): actions must agree to ``tol``, min_distance to 1e-4, the
     stop/arrive/collision flags exactly. Returns the largest action and
     min_distance differences."""
     from neupan_torch import NeuPan
@@ -982,7 +1154,7 @@ def against_cpu(name, kwargs, trace):
         action_c, info_c = on_cpu(t["state"], t["points"], t["velocities"])
         d_a = float(np.abs(t["action"] - action_c).max())
         d_m = abs(t["min_distance"] - on_cpu.min_distance)
-        check(d_a <= 5e-4, f"{name}, tick {i}: action card vs CPU differ by {d_a} > 5e-4")
+        check(d_a <= tol, f"{name}, tick {i}: action card vs CPU differ by {d_a} > {tol}")
         check(d_m <= 1e-4, f"{name}, tick {i}: min_distance card vs CPU differ by {d_m} > 1e-4")
         check(t["flags"] == tuple(bool(info_c[k]) for k in FLAGS),
               f"{name}, tick {i}: flags card {t['flags']} vs CPU differ")
@@ -1167,61 +1339,243 @@ def parity_path(torch):
     return launches, report
 
 
+def long_horizon_gates(name, d):
+    """opt_u (or QP-level u) card vs CPU over the scenario-steps of a case,
+    d (steps, B): each step's median to LONG_HORIZON_MEDIAN and largest to
+    LONG_HORIZON_MAX, at most LONG_HORIZON_ABOVE above 5e-4 (returned)."""
+    above = []
+    for i, di in enumerate(d):
+        check(float(di.median()) <= LONG_HORIZON_MEDIAN and float(di.max()) <= LONG_HORIZON_MAX,
+              f"{name}, step {i}: u card vs CPU differ by {float(di.max())} (median "
+              f"{float(di.median())})")
+        above += [[i, int(b), float(di[b])] for b in (di > 5e-4).nonzero()[:, 0]]
+    check(len(above) <= LONG_HORIZON_ABOVE,
+          f"{name}: {len(above)} scenario-steps above 5e-4 card vs CPU: {above}")
+    return above
+
+
+def horizon_case(torch, dev, name, T, K, measure=False, chaotic=False, **spec_kw):
+    """LONG_HORIZON_STEPS chained batched steps at horizon T with K obstacle
+    slots, B=B_LONG, ``spec_kw`` PANSpec fields, against the same steps on
+    the CPU under ``long_horizon_gates`` (the scenario-steps above 5e-4 are
+    reported). The counters must show exactly the routes ``qp_routes``
+    gives. ``chaotic`` (the full-space ADMM): ``noise_gate`` instead. With
+    ``measure``, also the host ms of one step and its device busy ms and
+    kernel count (torch.profiler)."""
+    from neupan_torch.ops.pan import _admm_with_elim
+
+    spec, encoder, geom, adjust, data = flagship(torch, dev, B_LONG, T=T, K=K, **spec_kw)
+    nrmp, cfg = spec.nrmp, _admm_with_elim(spec)
+    routes = qp_routes(nrmp, cfg, 2 * LONG_HORIZON_STEPS)   # two PAN iterations per step
+    want = {"select": 2 * LONG_HORIZON_STEPS, "select_topk": 0, "mlp": 2 * LONG_HORIZON_STEPS,
+            **routes}
+    outs, counts = counted(torch, name, want, lambda: run_chain(
+        torch, spec, encoder, geom, adjust, data, dev=dev, steps=LONG_HORIZON_STEPS))
+    cpu = to_cpu(encoder, geom, adjust)
+    outs_cpu = run_chain(torch, spec, *cpu, data, dev=torch.device("cpu"),
+                         steps=LONG_HORIZON_STEPS)
+    for o in outs:
+        check(bool(torch.isfinite(o.opt_u).all()), f"{name}: non-finite opt_u on the card")
+    d = torch.stack([(o.opt_u.cpu() - oc.opt_u).abs().amax(dim=(1, 2))
+                     for o, oc in zip(outs, outs_cpu)])
+    n_eq = cfg.elim_n_eq
+    report = {"B": B_LONG, "steps": LONG_HORIZON_STEPS, "k": nrmp.n - n_eq, "m": nrmp.m - n_eq,
+              "n": nrmp.n, "m_full": nrmp.m, "n_eq": n_eq, "na": cfg.elim_n_acc,
+              "opt_u_card_vs_cpu_max": float(d.max()),
+              "opt_u_card_vs_cpu_median": float(d.median(dim=1).values.max()),
+              "routes": {key: counts[key] for key in routes}}
+    if chaotic:
+        noisy = run_chain(torch, spec, *cpu, perturbed(data), dev=torch.device("cpu"),
+                          steps=LONG_HORIZON_STEPS)
+        d_noise = torch.stack([(o.opt_u - oc.opt_u).abs().amax(dim=(1, 2))
+                               for o, oc in zip(noisy, outs_cpu)])
+        report["opt_u"] = noise_gate(name, d, d_noise)
+    else:
+        above = long_horizon_gates(name, d)
+        report.update({"scenario_steps_above_5e-4": len(above), "above_5e-4": above})
+    if measure:
+        one = lambda: run_chain(torch, spec, encoder, geom, adjust, data, dev=dev, steps=1)
+        report.update(host_and_device(torch, one, reps=2))
+    print(f"{name}: routes {report['routes']}", file=sys.stderr)
+    return counts, report
+
+
+def host_and_device(torch, run, reps):
+    """Host-clock ms of ``run`` (mean of ``reps``, each ending in a sync, after
+    one warm-up) and its device busy ms and kernel count (torch.profiler)."""
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        run()
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    busy_us, n_kernels = profile_kernels(torch, run)
+    return {"ms_per_step": ms, "device_busy_ms_per_step": busy_us / 1e3,
+            "device_kernels_per_step": n_kernels}
+
+
 def long_horizon_path(torch, dev):
     """The shapes that take the plain routes on the card (fault F1 of the
-    port): LONG_HORIZON_STEPS chained batched steps at T=30, K=12 (the
-    ADMM operator does not fit one block: its plain version) and at T=33
-    (n=99 > 96: the Cholesky inverses, and the polish's plain version),
-    B=B_LONG, against the same steps on the CPU (opt_u: the median over
-    scenarios to LONG_HORIZON_MEDIAN, the largest to LONG_HORIZON_MAX, at
-    most LONG_HORIZON_ABOVE scenario-steps above 5e-4, which are reported).
-    The route of each QP stage is set by ``ops/qp.py``'s admission checks;
-    the counters must show exactly those routes."""
-    from neupan_torch.ops.kernels.admm import admm_fits
-    from neupan_torch.ops.kernels.polish import polish_fits
-    from neupan_torch.ops.kernels.sweep import MAX_N
-
+    port), ``horizon_case`` at T=30, K=12 (the ADMM operator does not fit
+    one block: its plain version) and at T=33 (n=99 > 96: the Cholesky
+    inverses, and the polish's plain version)."""
     launches, report = {}, {}
     for T, K in LONG_HORIZON_CASES:
-        spec, encoder, geom, adjust, data = flagship(torch, dev, B_LONG, T=T, K=K)
-        nrmp, k = spec.nrmp, 3 * T
-        n_eq, n_acc = nrmp.r_acc, nrmp.r_spd - nrmp.r_acc
-        qps = 2 * LONG_HORIZON_STEPS          # two PAN iterations per step
-        inv_small = (n_eq <= MAX_N) + 2 * (k <= MAX_N)   # Gram + two ADMM phases per QP
-        admm_k = 2 * admm_fits(k, nrmp.m - n_eq)
-        polish_k = 5 * polish_fits(k, n_acc)
-        # a plain polish candidate inverts Hm (k) and S (na) itself, by Cholesky above 96
-        polish_plain = qps * (5 - polish_k)
-        want = {"select": 2 * LONG_HORIZON_STEPS, "select_topk": 0, "mlp": 2 * LONG_HORIZON_STEPS,
-                "sweep": qps * inv_small,
-                "cholesky": qps * (3 - inv_small) + polish_plain * ((k > MAX_N) + (n_acc > MAX_N)),
-                "admm": qps * admm_k, "admm_plain": qps * (2 - admm_k),
-                "polish": qps * polish_k, "polish_plain": polish_plain}
         name = f"T={T} K={K}"
-        outs, counts = counted(torch, name, want, lambda: run_chain(
-            torch, spec, encoder, geom, adjust, data, dev=dev, steps=LONG_HORIZON_STEPS))
-        outs_cpu = run_chain(torch, spec, *to_cpu(encoder, geom, adjust), data,
-                             dev=torch.device("cpu"), steps=LONG_HORIZON_STEPS)
-        du, du_median, above = 0.0, 0.0, []
-        for i, (o, oc) in enumerate(zip(outs, outs_cpu)):
-            check(bool(torch.isfinite(o.opt_u).all()), f"{name}: non-finite opt_u on the card")
-            d = (o.opt_u.cpu() - oc.opt_u).abs().amax(dim=(1, 2))
-            check(float(d.median()) <= LONG_HORIZON_MEDIAN and float(d.max()) <= LONG_HORIZON_MAX,
-                  f"{name}, step {i}: opt_u card vs CPU differ by {float(d.max())} (median "
-                  f"{float(d.median())})")
-            du, du_median = max(du, float(d.max())), max(du_median, float(d.median()))
-            above += [[i, int(b), float(d[b])] for b in torch.nonzero(d > 5e-4)[:, 0]]
-        check(len(above) <= LONG_HORIZON_ABOVE,
-              f"{name}: {len(above)} scenario-steps above 5e-4 card vs CPU: {above}")
+        counts, report[name] = horizon_case(torch, dev, name, T, K)
         for key, v in counts.items():
             launches[key] = launches.get(key, 0) + v
-        report[name] = {"B": B_LONG, "steps": LONG_HORIZON_STEPS, "k": k, "m": nrmp.m - n_eq,
-                        "n_eq": n_eq, "na": n_acc, "opt_u_card_vs_cpu_max": du,
-                        "opt_u_card_vs_cpu_median": du_median,
-                        "scenario_steps_above_5e-4": len(above), "above_5e-4": above,
-                        "routes": {key: counts[key] for key in want if key not in
-                                   ("select", "select_topk", "mlp")}}
-        print(f"long horizon {name}: routes {report[name]['routes']}", file=sys.stderr)
+    return launches, report
+
+
+def generic_qps(torch, B, seed, soft):
+    """A batch of tests/test_qp.py's generic QPs from a numpy seed: random
+    QPs (n=12, m=20, two equality rows), or with ``soft`` its soft-row form
+    (n=10, eight hard rows of which two equalities, six one-sided penalty
+    rows). Float32 QPData on the CPU."""
+    from neupan_torch.ops.qp import QPData
+
+    rng = np.random.default_rng(seed)
+    if soft:
+        n, m_h, m_s = 10, 8, 6
+    else:
+        n, m_h, m_s = 12, 20, 0
+    P = rng.uniform(0.5, 2.0, (B, n))
+    q = rng.normal(size=(B, n))
+    Ah = rng.normal(size=(B, m_h, n))
+    mid = np.einsum("bmn,bn->bm", Ah, rng.normal(size=(B, n))) * 0.1
+    half = 1.0 if soft else rng.uniform(0.5, 2.0, (B, m_h))
+    lh, uh = mid - half, mid + half
+    lh[:, :2] = uh[:, :2] = mid[:, :2]
+    As = rng.normal(size=(B, m_s, n))
+    ls = np.einsum("bmn,bn->bm", As, rng.normal(size=(B, n))) * 0.1 + rng.uniform(-0.5, 0.5, (B, m_s))
+    w = rng.uniform(5.0, 50.0, (B, m_s))
+    t = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32)
+    return QPData(t(P), t(q), t(np.concatenate([Ah, As], axis=1)), t(np.concatenate([lh, ls], 1)),
+                  t(np.concatenate([uh, np.full((B, m_s), 1e20)], 1)),
+                  soft=t(np.concatenate([np.zeros((B, m_h)), w], 1)) if soft else None)
+
+
+def solvers_path(torch, dev):
+    """The QP solver's paths off the main path, each counted (every launch
+    count set to 0 just before it, read just after) and held against the
+    port on the CPU fed the same inputs:
+
+    (a) three chained flagship steps at B=512 with ``condense_admm=False``:
+        the full-space ADMM, admm at (63, 181) on its kernel; the planner's
+        output there moves by up to 0.7 under a 1e-6 change of its inputs
+        (on the CPU alone), so opt_u card vs CPU on B_CPU scenarios is held
+        to that spread (``noise_gate``);
+    (b) one flagship B=512 step with the generic condensed polish (layout
+        statics given with ``elim_n_acc=None``), opt_u to 5e-4;
+    (c) B_LONG steps at T=30 (corridor_long/diff: K=10) in the full space,
+        dense and ``inverse="banded"``: admm at (183, 541) on its plain
+        version, the inverses by Cholesky or the block-tridiagonal route
+        (whose library calls are counted); ``noise_gate`` as in (a), on
+        every scenario;
+    (d) ``solve_qp_batch`` at B=512 on tests/test_qp.py's generic QPs
+        (``generic_qps``), polish on and off, x to 5e-4 on every scenario;
+    (e) the facade at examples/corridor/diff with ``pan.admm =
+        {"condense_admm": false}``: FACADE_TICKS ticks, each tick of the CPU
+        planner from the card's carried state, actions to
+        FACADE_FULLSPACE_TOL.
+
+    Each reports ms per step on the host clock, device busy ms and kernels
+    per step (torch.profiler), and each QP stage's route, counted."""
+    from neupan_torch import NeuPan
+    from neupan_torch.config import planner_kwargs
+    from neupan_torch.ops.banded import btd_spd_inverse
+    from neupan_torch.ops.nrmp import NRMPSpec
+    from neupan_torch.ops.qp import ADMMConfig, solve_qp_batch
+
+    launches, report = {}, {}
+
+    def add(counts):
+        for key, v in counts.items():
+            launches[key] = launches.get(key, 0) + v
+
+    full = ADMMConfig(condense_admm=False)
+    counts, report["fullspace"] = chain_path(torch, dev, "solvers fullspace", PER_STEP, 5, False,
+                                             chaotic=True, admm=full)
+    add(counts)
+    report["fullspace"]["routes"] = {k: counts[k] for k in (*QP_PER_STEP, *twins())}
+
+    nrmp = NRMPSpec(T=10, K=10, kinematics="diff", speed_bound=(8.0, 1.0), acce_bound=(8.0, 3.0))
+    generic = ADMMConfig(elim_n_eq=nrmp.r_acc, elim_n_hard=nrmp.r_obs - nrmp.r_acc)
+    routes = qp_routes(nrmp, generic, 2)           # one step: two PAN iterations
+    counts, report["generic_polish"] = chain_path(
+        torch, dev, "solvers generic polish", {"select": 2, "select_topk": 0, "mlp": 2, **routes},
+        3, False, steps=1, admm=generic)
+    add(counts)
+    report["generic_polish"]["routes"] = {k: counts[k] for k in routes}
+
+    T, K = 30, CONFIGS["corridor_long/diff"]["planner"]["pan"]["nrmp_max_num"]
+    for name, cfg in (("T30_dense", full), ("T30_banded", ADMMConfig(condense_admm=False,
+                                                                      inverse="banded"))):
+        btd_spd_inverse.library_calls = 0
+        counts, report[name] = horizon_case(torch, dev, f"solvers {name}", T, K, measure=True,
+                                            chaotic=True, admm=cfg)
+        add(counts)
+        if counts["banded"]:   # both counters run on through the measured steps
+            report[name]["banded_library_calls_per_inverse"] = (
+                btd_spd_inverse.library_calls / btd_spd_inverse.launches)
+
+    for soft in (False, True):
+        qp_cpu = generic_qps(torch, B_MAIN, 11 + soft, soft)
+        qp = type(qp_cpu)(*(None if t is None else t.to(dev) for t in qp_cpu))
+        n, m = qp.A.shape[2], qp.A.shape[1]
+        for polish in (True, False):
+            cfg = ADMMConfig(iters=200, polish=polish)
+            name = f"batch_{'soft' if soft else 'random'}_{'polish' if polish else 'nopolish'}"
+            rounds = cfg.polish_rounds if polish else 0
+            # no basis: two full-space phases, then per round the full-space
+            # candidate's two inverses (Hp at n, S at m)
+            sol, counts = counted(torch, f"solvers {name}",
+                                  {**dict.fromkeys(KERNELS, 0), "sweep": 2 + 2 * rounds, "admm": 2},
+                                  lambda: solve_qp_batch(qp, cfg))
+            add(counts)
+            ref = solve_qp_batch(qp_cpu, cfg)
+            check(bool(torch.isfinite(sol.x).all()), f"solvers {name}: non-finite x on the card")
+            dx = float((sol.x.cpu() - ref.x).abs().max())
+            check(dx <= 5e-4, f"solvers {name}: x card vs CPU differ by {dx} > 5e-4")
+            report[name] = {"B": B_MAIN, "n": n, "m": m, "x_card_vs_cpu_max": dx,
+                            "r_prim_max": float(sol.r_prim.max()),
+                            "routes": {k: counts[k] for k in (*QP_PER_STEP, *twins())},
+                            **host_and_device(torch, lambda: solve_qp_batch(qp, cfg), reps=3)}
+
+    kwargs = planner_kwargs(CONFIGS["corridor/diff"]["planner"])
+    kwargs["pan_kwargs"] = dict(kwargs["pan_kwargs"], admm={"condense_admm": False})
+    planner = NeuPan(**kwargs)
+    check(not planner.spec.admm.condense_admm, "solvers facade: pan.admm did not reach the spec")
+    rng = np.random.default_rng(0)
+    walls = [np.stack([rng.uniform(0.0, 14.0, 90),
+                       20.0 + rng.choice([-1.0, 1.0], 90) * rng.uniform(1.8, 4.0, 90)])
+             for _ in range(FACADE_TICKS)]
+
+    def drive():
+        state, trace, times = np.array([[0.0], [20.0], [0.0]]), [], []
+        for i in range(FACADE_TICKS):
+            carry = (tuple(t.cpu() for t in planner.pan_state), planner.cur_vel_array.copy())
+            t0 = time.perf_counter()
+            trace.append(dict(tick(planner, state, walls[i]), carry=carry))
+            times.append((time.perf_counter() - t0) * 1e3)
+            v, w, th = trace[-1]["action"][0, 0], trace[-1]["action"][1, 0], state[2, 0]
+            state = state + planner.dt * np.array([[v * np.cos(th)], [v * np.sin(th)], [w]])
+        return trace, times
+
+    (trace, times), counts = counted(torch, "solvers facade",
+                                     {k: v * FACADE_TICKS for k, v in PER_STEP.items()}, drive)
+    add(counts)
+    d_act, d_min = against_cpu("solvers facade", kwargs, trace, tol=FACADE_FULLSPACE_TOL)
+    busy_us, n_kernels = profile_kernels(torch, lambda: tick(planner, trace[-1]["state"],
+                                                             walls[-1]))
+    report["facade"] = {"ticks": FACADE_TICKS, "ms_per_tick": float(np.mean(times[1:])),
+                        "device_busy_ms_per_tick": busy_us / 1e3,
+                        "device_kernels_per_tick": n_kernels,
+                        "action_card_vs_cpu_max": d_act, "min_distance_card_vs_cpu_max": d_min,
+                        "routes": {k: counts[k] for k in (*QP_PER_STEP, *twins())}}
+    print(f"[solvers] {json.dumps(report)}", file=sys.stderr)
     return launches, report
 
 
@@ -1652,7 +2006,7 @@ def profile_kernels(torch, run):
     return sum(e.time_range.elapsed_us() for e in kernels), len(kernels)
 
 
-def profile_step(torch, spec, encoder, geom, adjust, data):
+def profile_step(torch, spec, encoder, geom, adjust, data, steps=STEPS):
     """Device kernel time over the chained B=512 steps (torch.profiler).
 
     Returns the device's kernel-busy time and kernel count per step, the
@@ -1674,7 +2028,8 @@ def profile_step(torch, spec, encoder, geom, adjust, data):
     D._lam_and_distance = lam_and_distance
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            run_chain(torch, spec, encoder, geom, adjust, data, dev=data["pts"][0].device)
+            run_chain(torch, spec, encoder, geom, adjust, data, dev=data["pts"][0].device,
+                      steps=steps)
             torch.cuda.synchronize()
     finally:
         D._lam_and_distance = glue
@@ -1693,13 +2048,13 @@ def profile_step(torch, spec, encoder, geom, adjust, data):
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     ours = tuple(e for names in ENTRIES.values() for e in names)
     ours_us = sum(t for n, t in by_name.items() if any(k in n for k in ours))
-    lines = [f"device kernels over {STEPS} steps, by name (us, share of busy time)"]
+    lines = [f"device kernels over {steps} steps, by name (us, share of busy time)"]
     lines += [f"{t:12.1f} {t / busy_us:7.2%}  {name[:140]}"
               for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:30]]
     mlp_us = sum(t for n, t in by_name.items() if any(k in n for k in ENTRIES["mlp"]))
-    summary = {"device_busy_ms_per_step": busy_us / 1e3 / STEPS,
-               "device_kernels_per_step": len(kernels) / STEPS,
-               "hand_kernels_ms_per_step": ours_us / 1e3 / STEPS,
+    summary = {"device_busy_ms_per_step": busy_us / 1e3 / steps,
+               "device_kernels_per_step": len(kernels) / steps,
+               "hand_kernels_ms_per_step": ours_us / 1e3 / steps,
                "mlp_kernel_ms_per_dune_call": mlp_us / 1e3 / calls[0],
                "lam_and_distance_ms_per_dune_call": glue_us / 1e3 / calls[0]}
     return summary, "\n".join(lines)
@@ -1743,6 +2098,10 @@ def main() -> None:
     by_path["parity"], report["closed_loop_card_vs_cpu"] = parity_path(torch)
     print(f"[parity] {json.dumps(report['closed_loop_card_vs_cpu'])}", file=sys.stderr)
     by_path["long_horizon"], report["long_horizon"] = long_horizon_path(torch, dev)
+    by_path["solvers"], report["solvers"] = solvers_path(torch, dev)
+    check(report["solvers"]["fullspace"]["routes"]["admm"] > 0
+          and report["solvers"]["T30_dense"]["routes"]["admm_plain"] > 0,
+          "solvers path: admm did not take its kernel at T=10 and its plain version at T=30")
     by_path["lon"], report["lon"] = lon_path(torch, dev)
     for name in ("select", "sweep", "admm", "polish"):
         check(by_path["lon"][name] > 0, f"lon path: {name} was not launched")
@@ -1766,6 +2125,8 @@ def main() -> None:
             entries[-1].update(ms_B1=r["ms_B1"], bound_ms_B1=r["bound_B1"][0])
         if name == "polish":
             entries[-1]["at_T33"] = kern["polish_k99"]
+        if name == "admm":
+            entries[-1]["at_fullspace"] = kern["admm_fullspace"]
         if "bound_cuda_core" in r:
             entries[-1].update(bound_design="tensor_core",
                                bound_ms_cuda_core=r["bound_cuda_core"][0])

@@ -1,0 +1,1 @@
+from neupan_torch.ops.qp import ADMMConfig, QPData, QPSolution, solve_qp, solve_qp_batch  # noqa: F401

@@ -68,26 +68,27 @@ def admm_fits(k: int, m: int) -> bool:
     return smem_bytes(k, m) <= _build.SMEM_LIMIT
 
 
-def _check_inputs(Minv, As, qs, ls, us, soft, rho, w0, z0, y0):
+def _check_inputs(Minv, As, qs, ls, us, soft, rho, w0, z0, y0, dtype=torch.float32):
     dev = _build.dispatch_device(As)
     if As.dim() != 3 or As.shape[0] < 1:
         raise ValueError(f"As must be (B>=1, m, k), got {tuple(As.shape)}")
     B, m, k = As.shape
-    _build.check(Minv, "Minv", (B, k, k), device=dev)
-    _build.check(As, "As", (B, m, k), device=dev)
+    _build.check(Minv, "Minv", (B, k, k), dtype, device=dev)
+    _build.check(As, "As", (B, m, k), dtype, device=dev)
     for name, t in (("qs", qs), ("w0", w0)):
-        _build.check(t, name, (B, k), device=dev)
+        _build.check(t, name, (B, k), dtype, device=dev)
     for name, t in (("ls", ls), ("us", us), ("soft", soft), ("rho", rho),
                     ("z0", z0), ("y0", y0)):
-        _build.check(t, name, (B, m), device=dev)
+        _build.check(t, name, (B, m), dtype, device=dev)
     return dev, B, m, k
 
 
 def admm_iterate_plain(Minv, As, qs, ls, us, soft, rho, w0, z0, y0, *,
                        iters: int, sigma: float, alpha: float):
-    """The same function as ``admm_iterate`` in plain PyTorch, at any (k, m).
-    Calls on CUDA tensors are counted in ``admm_iterate_plain.launches``."""
-    dev = _check_inputs(Minv, As, qs, ls, us, soft, rho, w0, z0, y0)[0]
+    """The same function as ``admm_iterate`` in plain PyTorch, at any (k, m)
+    and in float64 too. Calls on CUDA tensors are counted in
+    ``admm_iterate_plain.launches``."""
+    dev = _check_inputs(Minv, As, qs, ls, us, soft, rho, w0, z0, y0, dtype=As.dtype)[0]
     if dev.type == "cuda":
         admm_iterate_plain.launches += 1
     inv_rho = 1.0 / rho

@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from neupan_torch import resolve_device, same_device
+from neupan_torch.ops.banded import nrmp_permutation
 from neupan_torch.ops.dune import (DuneOutput, dune_forward, dune_forward_flow,
                                    generate_point_flow)
 from neupan_torch.ops.nrmp import (AdjustParams, NRMPSpec, build_qp,
@@ -145,13 +146,19 @@ def _stop_diff(spec: PANSpec, state: PANState, s, u, dune: Optional[DuneOutput],
 def _admm_with_elim(spec: PANSpec) -> ADMMConfig:
     """Fill the condensed solver's row-layout statics from the NRMP layout:
     equality rows (dynamics 3T + init 3) first, then the acc rows (general),
-    then unit bounds on w (speed, d box), then the soft obstacle rows."""
+    then unit bounds on w (speed, d box), then the soft obstacle rows; and,
+    for ``inverse="banded"`` without a permutation, the horizon-interleaved
+    one (``banded.nrmp_permutation``). A user's ``elim_n_eq`` wins: the
+    config is then taken as it is."""
     if spec.admm.elim_n_eq is not None:
         return spec.admm
     nrmp = spec.nrmp
+    extra = {}
+    if spec.admm.inverse == "banded" and spec.admm.banded_perm is None:
+        extra["banded_perm"] = tuple(int(i) for i in nrmp_permutation(nrmp.T, nrmp.no_obs))
     return dataclasses.replace(spec.admm, elim_n_eq=nrmp.r_acc,
                                elim_n_hard=(nrmp.m if nrmp.no_obs else nrmp.r_obs) - nrmp.r_acc,
-                               elim_n_acc=nrmp.r_spd - nrmp.r_acc)
+                               elim_n_acc=nrmp.r_spd - nrmp.r_acc, **extra)
 
 
 def _where(keep: torch.Tensor, old: torch.Tensor, new: torch.Tensor) -> torch.Tensor:

@@ -131,15 +131,16 @@ class NeuPan:
             reg_u=float(adjust_kwargs.get("reg_u", 0.001)),
             reg_d=float(adjust_kwargs.get("reg_d", 0.01)),
         )
-        if nrmp_spec.reg_u == 0.0 or nrmp_spec.reg_d == 0.0:
+        if (nrmp_spec.reg_u == 0.0 or nrmp_spec.reg_d == 0.0) and \
+                ADMMConfig(**admm_kwargs).polish:
             # The polish's value-based active-set identification requires a
-            # strictly convex P (neupan_tpu/ops/qp.py:_polish docstring), and
-            # the port's solver always polishes. Warn rather than silently
-            # degrade.
-            print("NeuPan WARNING: adjust.reg_u/reg_d = 0 — the QP objective "
-                  "is only PSD and the active-set polish may not converge "
-                  "(see NRMPSpec.reg_u). Restore the defaults (reg_u 1e-3 / "
-                  "reg_d 1e-2).")
+            # strictly convex P (neupan_tpu/ops/qp.py:_polish docstring).
+            # Warn rather than silently degrade.
+            print("NeuPan WARNING: adjust.reg_u/reg_d = 0 with polish "
+                  "enabled — the QP objective is only PSD and the active-"
+                  "set polish may not converge (see NRMPSpec.reg_u). "
+                  "Restore the defaults (reg_u 1e-3 / reg_d 1e-2) or disable "
+                  "polish.")
         self.spec = PANSpec(
             robot=self.robot,
             nrmp=nrmp_spec,

@@ -902,6 +902,340 @@ def write_dune_train_golden(path: str) -> None:
     np.savez_compressed(path, optimizers=np.asarray(DUNE_OPTIMIZERS), **rec)
 
 
+# -- the solver paths off the main path ---------------------------------------
+
+FULLSPACE_SEEDS = (0, 1, 2, 3, 4)
+# the solves of each flagship instance: name -> ADMMConfig fields over the
+# NRMP layout statics (layout_cfg); "nobasis" solves with no elimination basis
+FULLSPACE_SOLVES = {
+    "full": dict(condense_admm=False),
+    "generic": dict(elim_n_acc=None),
+    "full_nopolish": dict(condense_admm=False, polish=False),
+    "cond_nopolish": dict(polish=False),
+    "nobasis": None,
+}
+GENERIC_ITERS = 200        # tests/test_qp.py's CFG
+GRAD_Q_THETA, GRAD_SOFT_THETA, GRAD_EPS = 0.7, 1.2, 1e-3
+
+
+def generic_qp_cases() -> dict:
+    """tests/test_qp.py's instances from their numpy seeds: case -> dict of
+    float64 arrays (P_diag, q, A, l, u, optional soft) and ``iters``. Each
+    QP is one scenario without a batch axis, except ``batch`` (B=4)."""
+    cases = {}
+    n = 8
+    cases["unconstrained"] = dict(P_diag=np.linspace(1.0, 3.0, n), q=np.linspace(-1.0, 1.0, n),
+                                  A=np.eye(n), l=-1e4 * np.ones(n), u=1e4 * np.ones(n))
+    cases["box_clipped"] = dict(P_diag=np.array([1.0]), q=np.array([-3.0]), A=np.array([[1.0]]),
+                                l=np.array([-1e4]), u=np.array([1.0]))
+    cases["equality"] = dict(P_diag=np.ones(2), q=np.zeros(2), A=np.array([[1.0, 1.0]]),
+                             l=np.array([2.0]), u=np.array([2.0]))
+    for seed in (0, 1, 2):
+        rng = np.random.default_rng(seed)
+        n, m = 12, 20
+        P = rng.uniform(0.5, 2.0, n)
+        q = rng.normal(size=n)
+        A = rng.normal(size=(m, n))
+        mid = A @ rng.normal(size=n) * 0.1
+        width = rng.uniform(0.5, 2.0, m)
+        l, u = mid - width, mid + width
+        l[:2] = u[:2] = mid[:2]
+        cases[f"random{seed}"] = dict(P_diag=P, q=q, A=A, l=l, u=u)
+    rng = np.random.default_rng(5)
+    n, m = 20, 30
+    P = rng.uniform(0.1, 5.0, n)
+    q = rng.normal(size=n)
+    A = rng.normal(size=(m, n))
+    l = A @ rng.normal(size=n) * 0.05 - 1.0
+    cases["kkt_small"] = dict(P_diag=P, q=q, A=A, l=l, u=l + rng.uniform(0.1, 2.0, m),
+                              iters=1000)
+    rng = np.random.default_rng(7)
+    B, n, m = 4, 10, 14
+    P = rng.uniform(0.5, 2.0, (B, n))
+    q = rng.normal(size=(B, n))
+    A = rng.normal(size=(B, m, n))
+    mid = np.einsum("bmn,bn->bm", A, rng.normal(size=(B, n)) * 0.1)
+    cases["batch"] = dict(P_diag=P, q=q, A=A, l=mid - 1.0, u=mid + 1.0)
+    for w in (0.5, 2.0, 50.0):
+        cases[f"soft_w{w:g}"] = dict(P_diag=np.array([1.0]), q=np.array([-3.0]),
+                                     A=np.array([[1.0]]), l=np.array([5.0]),
+                                     u=np.array([1e20]), soft=np.array([w]))
+    cases["soft_inactive"] = dict(P_diag=np.array([1.0]), q=np.array([-3.0]),
+                                  A=np.array([[1.0]]), l=np.array([1.0]), u=np.array([1e20]),
+                                  soft=np.array([10.0]))
+    for seed in (0, 1, 2):
+        rng = np.random.default_rng(seed)
+        n, m_h, m_s = 10, 8, 6
+        P = rng.uniform(0.5, 2.0, n)
+        q = rng.normal(size=n)
+        Ah = rng.normal(size=(m_h, n))
+        mid = Ah @ rng.normal(size=n) * 0.1
+        lh, uh = mid - 1.0, mid + 1.0
+        lh[:2] = uh[:2] = mid[:2]
+        As = rng.normal(size=(m_s, n))
+        ls = As @ rng.normal(size=n) * 0.1 + rng.uniform(-0.5, 0.5, m_s)
+        w = rng.uniform(5.0, 50.0, m_s)
+        cases[f"soft_rows{seed}"] = dict(
+            P_diag=P, q=q, A=np.vstack([Ah, As]), l=np.concatenate([lh, ls]),
+            u=np.concatenate([uh, np.full(m_s, 1e20)]),
+            soft=np.concatenate([np.zeros(m_h), w]))
+        # the explicit-slack form: vars [x, z]; obj += 0.5 w z^2; As x + z >= ls, z >= 0
+        A2 = np.zeros((m_h + 2 * m_s, n + m_s))
+        A2[:m_h, :n] = Ah
+        A2[m_h:m_h + m_s, :n] = As
+        A2[m_h:m_h + m_s, n:] = np.eye(m_s)
+        A2[m_h + m_s:, n:] = np.eye(m_s)
+        cases[f"slack{seed}"] = dict(
+            P_diag=np.concatenate([P, w]), q=np.concatenate([q, np.zeros(m_s)]), A=A2,
+            l=np.concatenate([lh, ls, np.zeros(m_s)]),
+            u=np.concatenate([uh, np.full(2 * m_s, 1e20)]))
+    cases["warm"] = dict(P_diag=np.ones(2), q=-np.ones(2), A=np.eye(2), l=-10.0 * np.ones(2),
+                         u=10.0 * np.ones(2))
+    for c in cases.values():
+        c.setdefault("iters", GENERIC_ITERS)
+    return cases
+
+
+def grad_q_qp(theta):
+    """tests/test_qp.py's implicit-gradient QP: q = -2 theta target."""
+    n = 6
+    return dict(P_diag=np.full(n, 2.0), q=-2.0 * theta * np.linspace(-1, 1, n), A=np.eye(n),
+                l=-0.5 * np.ones(n), u=0.5 * np.ones(n))
+
+
+def grad_soft_qp(theta):
+    """tests/test_qp.py's soft-row gradient QP: the soft row's target l is 6 theta."""
+    n = 4
+    return dict(P_diag=np.ones(n), q=np.zeros(n), A=np.vstack([np.eye(n), np.ones((1, n))]),
+                l=np.concatenate([-10 * np.ones(n), [6.0 * theta]]),
+                u=np.concatenate([10 * np.ones(n), [1e20]]),
+                soft=np.concatenate([np.zeros(n), [20.0]]))
+
+
+def write_qp_generic_golden(path: str) -> None:
+    """JAX's ``solve_qp`` on tests/test_qp.py's instances (``generic_qp_cases``:
+    no elimination basis, so the full-space ADMM and the full-space polish
+    candidate), scipy's x on the random ones, ``solve_qp_batch`` on the batch,
+    the warm-started solve, and the two gradients (``grad_q_qp``,
+    ``grad_soft_qp``) with their central differences. ~1 min on a CPU."""
+    jax = _jax_setup()
+    import jax.numpy as jnp
+    from neupan_tpu.ops.qp import ADMMConfig, QPData, solve_qp, solve_qp_batch
+    from tests.test_qp import scipy_qp_oracle
+
+    f = lambda a: jnp.asarray(a, jnp.float32)
+    fields = ("P_diag", "q", "A", "l", "u")
+    qp_of = lambda c: QPData(*(f(c[k]) for k in fields),
+                             soft=f(c["soft"]) if "soft" in c else None)
+    rec = {}
+    with jax.default_matmul_precision("highest"):
+        for name, c in generic_qp_cases().items():
+            cfg = ADMMConfig(iters=c["iters"])
+            rec.update({f"{name}__{k}": np.asarray(v) for k, v in c.items()})
+            if name == "batch":
+                sol = solve_qp_batch(qp_of(c), cfg)
+                rec["batch__jax_x_single"] = np.stack([np.asarray(solve_qp(
+                    QPData(*(f(c[k][b]) for k in fields)), cfg).x) for b in range(4)])
+            else:
+                sol = solve_qp(qp_of(c), cfg)
+            for k in ("x", "y", "z", "r_prim", "r_dual"):
+                rec[f"{name}__jax_{k}"] = np.asarray(getattr(sol, k))
+            if name.startswith("random"):
+                rec[f"{name}__scipy_x"] = scipy_qp_oracle(c["P_diag"], c["q"], c["A"], c["l"],
+                                                          c["u"], c["P_diag"].shape[0])
+            if name == "warm":
+                rec["warm__jax_x_warm"] = np.asarray(
+                    solve_qp(qp_of(c), ADMMConfig(iters=10), x0=sol.x, y0=sol.y).x)
+
+        for name, make, theta0 in (("grad_q", grad_q_qp, GRAD_Q_THETA),
+                                   ("grad_soft", grad_soft_qp, GRAD_SOFT_THETA)):
+            base = qp_of(make(1.0))
+
+            def loss(t, name=name, base=base):
+                # theta enters q (grad_q) or the soft row's l (grad_soft) traced
+                if name == "grad_q":
+                    qp = base._replace(q=-2.0 * t * f(np.linspace(-1, 1, 6)))
+                else:
+                    qp = base._replace(l=jnp.concatenate([-10 * jnp.ones(4), 6.0 * t[None]]))
+                return jnp.sum(solve_qp(qp, ADMMConfig(iters=GENERIC_ITERS)).x ** 2)
+
+            t0 = jnp.asarray(theta0, jnp.float32)
+            rec[f"{name}__loss"] = np.asarray(loss(t0))
+            rec[f"{name}__jax_grad"] = np.asarray(jax.grad(loss)(t0))
+            rec[f"{name}__jax_fd"] = np.asarray(
+                (loss(t0 + GRAD_EPS) - loss(t0 - GRAD_EPS)) / (2 * GRAD_EPS))
+    print("qp_generic: grads", {k: float(rec[f"{k}__jax_grad"]) for k in ("grad_q", "grad_soft")})
+    np.savez_compressed(path, cases=np.asarray(list(generic_qp_cases())), **rec)
+
+
+def write_qp_fullspace_golden(path: str) -> None:
+    """The five flagship instances of tests/test_qp_condensed.py
+    (``make_flagship_instance``, contact on even seeds) and their warm starts
+    (``warm_start``), JAX's solution of each from that start under each of
+    FULLSPACE_SOLVES (x, y, z, r_prim, r_dual) and the scipy float64 oracle's
+    u. ~40 min on a CPU (the accurate warm-start solves, the five JAX solves
+    of each instance and the oracle)."""
+    import dataclasses
+
+    jax = _jax_setup()
+    from neupan_tpu.ops.qp import ADMMConfig, solve_qp
+    from tests.test_nrmp import scipy_nrmp_oracle
+    from tests.test_qp_condensed import layout_cfg, make_flagship_instance, warm_start
+
+    rec = {}
+    add = lambda k, v: rec.setdefault(k, []).append(np.asarray(v, np.float32))
+    for seed in FULLSPACE_SEEDS:
+        spec, qp, elim, oracle_args = make_flagship_instance(seed, seed % 2 == 0)
+        x0, y0 = warm_start(qp, spec, elim, seed=seed)
+        for name, val in (*zip(QP_FIELDS, qp), ("Z", elim[0]), ("xp", elim[1]),
+                          ("x0", x0), ("y0", y0)):
+            add(name, val)
+        with jax.default_matmul_precision("highest"):
+            for name, over in FULLSPACE_SOLVES.items():
+                if over is None:
+                    sol = solve_qp(qp, ADMMConfig(), x0, y0)
+                else:
+                    cfg = dataclasses.replace(layout_cfg(spec), **over)
+                    sol = solve_qp(qp, cfg, x0, y0, elim=elim)
+                for k in ("x", "y", "z", "r_prim", "r_dual"):
+                    add(f"{name}_{k}", getattr(sol, k))
+        add("u_oracle", scipy_nrmp_oracle(*oracle_args)[1])
+        print(f"qp_fullspace seed {seed}: r_prim "
+              + ", ".join(f"{k} {float(rec[k + '_r_prim'][-1]):.2e}" for k in FULLSPACE_SOLVES))
+    np.savez_compressed(path, seeds=np.asarray(FULLSPACE_SEEDS), T=spec.T, K=spec.K,
+                        **{k: np.stack(v) for k, v in rec.items()})
+
+
+BANDED_TS = (4, 10, 30)
+
+
+def write_qp_banded_golden(path: str) -> None:
+    """tests/test_banded.py's real NRMP normal matrices (``make_M(T, seed=T)``
+    for T in BANDED_TS, and T=6 for the block structure) with JAX's raw
+    (refine=0) and refined btd inverses and its dense ``_spd_inverse``, and
+    its T=30 end-to-end instance (seed 7, K=5) with the banded and the dense
+    full-space solves. ~1 min on a CPU."""
+    jax = _jax_setup()
+    import jax.numpy as jnp
+    from neupan_tpu.ops import banded
+    from neupan_tpu.ops import qp as jqp
+    from neupan_tpu.ops.nrmp import AdjustParams, NRMPSpec, build_qp
+    from neupan_tpu.robot import Robot
+    from tests.test_banded import make_M
+
+    rec = {}
+    with jax.default_matmul_precision("highest"):
+        for T in (6, *BANDED_TS):
+            M = make_M(T, seed=T)
+            rec[f"M{T}"] = np.asarray(M)
+            if T == 6:
+                continue
+            perm = jnp.asarray(banded.nrmp_permutation(T))
+            rec[f"X{T}_raw"] = np.asarray(banded.btd_spd_inverse(M, perm, 6, refine=0))
+            rec[f"X{T}"] = np.asarray(banded.btd_spd_inverse(M, perm, 6))
+            rec[f"X{T}_dense"] = np.asarray(jqp._spd_inverse(M, jqp.ADMMConfig()))
+
+        T = 30
+        rng = np.random.default_rng(7)
+        robot = Robot.create(receding=T, step_time=0.1, kinematics="diff", max_speed=[8, 1],
+                             max_acce=[8, 3], length=1.6, width=2.0)
+        spec = NRMPSpec(T=T, K=5, kinematics="diff", speed_bound=tuple(robot.speed_bound[:, 0]),
+                        acce_bound=tuple(robot.acce_bound[:, 0]))
+        adjust = AdjustParams(q_s=jnp.asarray(1.0), p_u=jnp.asarray(1.0), eta=jnp.asarray(10.0),
+                              d_max=jnp.asarray(1.0), d_min=jnp.asarray(0.1))
+        nom_u = jnp.asarray(rng.uniform(-0.5, 0.5, (2, T)), jnp.float32)
+        nom_s = robot.rollout(jnp.zeros(3), nom_u)
+        A_dyn, B_dyn, C_dyn = robot.linearize(nom_s, nom_u)
+        fa = jnp.asarray(rng.normal(size=(T, 5, 2)) * 0.3, jnp.float32)
+        fb = jnp.asarray(rng.normal(size=(T, 5)) - 1.0, jnp.float32)
+        qp = build_qp(spec, adjust, nom_s, nom_u, nom_s, jnp.ones((T,), jnp.float32),
+                      A_dyn, B_dyn, C_dyn, fa, fb)
+        perm = tuple(int(i) for i in banded.nrmp_permutation(T))
+        for name, cfg in (("banded", jqp.ADMMConfig(condense_admm=False, inverse="banded",
+                                                    banded_perm=perm)),
+                          ("dense", jqp.ADMMConfig(condense_admm=False))):
+            sol = jqp.solve_qp(qp, cfg)
+            for k in ("x", "y", "r_prim", "r_dual"):
+                rec[f"{name}_{k}"] = np.asarray(getattr(sol, k))
+        rec.update({f"qp_{k}": np.asarray(v) for k, v in zip(QP_FIELDS, qp)})
+    print("qp_banded_t30: r_prim banded", float(rec["banded_r_prim"]),
+          "dense", float(rec["dense_r_prim"]))
+    np.savez_compressed(path, T=T, Ts=np.asarray(BANDED_TS), **rec)
+
+
+def write_qp_fullspace_f64_golden(path: str) -> None:
+    """JAX's full-space ADMM (``neupan_tpu/ops/qp.py:_admm_core``, no polish)
+    in float64 on the qp_fullspace instances from their warm starts (dense
+    inverse) and on the qp_banded_t30 instance from zeros (dense and banded
+    inverse): the port's float64 run must equal it, so that what parts the
+    float32 runs is rounding. Reads the two goldens; ~20 s on a CPU."""
+    jax = _jax_setup()
+    import jax.numpy as jnp
+    from neupan_tpu.ops import banded
+    from neupan_tpu.ops import qp as jqp
+
+    with np.load(os.path.join(GOLDEN_DIR, "qp_fullspace.npz")) as g:
+        flag = {k: g[k] for k in g.files}
+    with np.load(os.path.join(GOLDEN_DIR, "qp_banded_t30.npz")) as g:
+        t30 = {k: g[k] for k in g.files}
+    perm = tuple(int(i) for i in banded.nrmp_permutation(int(t30["T"])))
+    rec = {}
+    with jax.enable_x64(True), jax.default_matmul_precision("highest"):
+        f = lambda a: jnp.asarray(np.asarray(a, np.float64))
+        for b in range(len(flag["seeds"])):
+            qp = jqp.QPData(*(f(flag[k][b]) for k in QP_FIELDS))
+            x, y, *_ = jqp._admm_core(qp, jqp.ADMMConfig(), f(flag["x0"][b]), f(flag["y0"][b]))
+            rec.setdefault("flagship_x", []).append(np.asarray(x))
+            rec.setdefault("flagship_y", []).append(np.asarray(y))
+        qp = jqp.QPData(*(f(t30[f"qp_{k}"]) for k in QP_FIELDS))
+        zeros = (jnp.zeros(qp.P_diag.shape[0]), jnp.zeros(qp.l.shape[0]))
+        for name, cfg in (("t30_dense", jqp.ADMMConfig()),
+                          ("t30_banded", jqp.ADMMConfig(inverse="banded", banded_perm=perm))):
+            x, y, *_ = jqp._admm_core(qp, cfg, *zeros)
+            rec[f"{name}_x"], rec[f"{name}_y"] = np.asarray(x), np.asarray(y)
+    np.savez_compressed(path, **{k: np.asarray(v) for k, v in rec.items()})
+
+
+FACADE_SOLVER_TICKS = 5
+# name -> the corridor/diff planner's pan.admm setting of the facade_solvers golden
+FACADE_SOLVERS = {"fullspace": {"condense_admm": False},
+                  "banded": {"condense_admm": False, "inverse": "banded"},
+                  "nopolish": {"polish": False}}
+
+
+def write_facade_solvers_golden(path: str) -> None:
+    """The facade golden's first FACADE_SOLVER_TICKS ticks (``facade_points``,
+    the JAX facade's own loop through the exact kinematics) for each of
+    FACADE_SOLVERS: the corridor/diff planner built from its YAML with
+    ``pan.admm`` set; with the state it carried into each tick (``CARRY``,
+    ``cur_vel``) and what it returned. ~2 min on a CPU."""
+    _jax_setup()
+    import yaml
+    from neupan_tpu.planner import NeuPan
+
+    with open(os.path.join(ROOT, FACADE_YAML)) as f:
+        pan = yaml.safe_load(f)["pan"]
+    pts, counts = facade_points()
+    rec = {}
+    for name, admm in FACADE_SOLVERS.items():
+        planner = NeuPan.init_from_yaml(os.path.join(ROOT, FACADE_YAML), pan=dict(pan, admm=admm))
+        state = np.array([[0.0], [20.0], [0.0]])
+        for i in range(FACADE_SOLVER_TICKS):
+            for field in CARRY:
+                rec.setdefault(f"{name}_{field}", []).append(
+                    np.asarray(getattr(planner.pan_state, field[len("carry_"):])))
+            rec.setdefault(f"{name}_cur_vel", []).append(np.asarray(planner.cur_vel_array,
+                                                                    np.float64))
+            action, _ = planner(state, pts[i, :, :counts[i]].astype(np.float64))
+            rec.setdefault(f"{name}_state", []).append(state.copy())
+            rec.setdefault(f"{name}_action", []).append(np.asarray(action, np.float64))
+            rec.setdefault(f"{name}_min_distance", []).append(planner.min_distance)
+            state = diff_rollout(state[:, 0][None], np.asarray(action)[None],
+                                 planner.dt)[0, :, 1:2]
+        print(f"facade_solvers {name}: actions {np.stack(rec[name + '_action'])[:, :, 0].tolist()}")
+    np.savez(path, **{k: np.asarray(v) for k, v in rec.items()})
+
+
 WRITERS = {
     "planner_step": lambda p: write_step_golden(p, "fused"),
     "qp_solve": write_qp_golden,
@@ -917,6 +1251,11 @@ WRITERS = {
     "lon_ticks_corridor_diff": write_lon_ticks_golden,
     "dune_labels": write_dune_labels_golden,
     "dune_train": write_dune_train_golden,
+    "qp_generic": write_qp_generic_golden,
+    "qp_fullspace": write_qp_fullspace_golden,
+    "qp_banded_t30": write_qp_banded_golden,
+    "facade_solvers": write_facade_solvers_golden,
+    "qp_fullspace_f64": write_qp_fullspace_f64_golden,
 }
 
 

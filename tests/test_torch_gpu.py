@@ -369,7 +369,8 @@ def test_mlp_kernel_refuses_misaligned_points(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,n", [(1, 30), (5, 33), (3, 90), (2, 96)])
+@pytest.mark.parametrize("B,n", [(1, 30), (5, 33), (3, 90), (2, 96),
+                                 (4, 48), (4, 63)])      # generic polish's S, full-space M
 def test_sweep_kernel_matches_plain(cuda, B, n):
     Mt = t32(sweep_inputs(B, n), cuda)
     X, Xp = SW.sweep_spd_inverse(Mt), SW.sweep_spd_inverse_plain(Mt)
@@ -420,7 +421,8 @@ def test_sweep_scaled_kernel_takes_a_strided_input(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,k,m", [(1, 30, 148), (16, 30, 148), (513, 30, 148),  # main path
                                    (4, 20, 38),                               # the K=0 step
-                                   (2, 90, 451)])                             # T=30
+                                   (2, 90, 451),                              # T=30
+                                   (16, 63, 181), (512, 63, 181)])            # full space
 def test_admm_kernel_matches_plain(cuda, B, k, m):
     """Every instance of the kernel: registers (k <= 32, m <= 256) and shared
     memory (T=30's operator, 212 KB); one scenario and more than one wave."""
@@ -789,3 +791,118 @@ def test_train_dune_then_a_facade_tick_runs_the_trained_weights(cuda, tmp_path):
             got = mlp(planner.encoder, pts)
             assert float((got - planner.encoder(pts)).abs().max()) <= 1e-5
             assert float((got - seeded(pts)).abs().max()) > 1e-4
+
+
+# -- the solver paths off the main path --------------------------------------------
+
+def _solver_step(T, K, B, admm, seed=3):
+    """A batched planner step at horizon T under ``admm``: (spec, inputs,
+    encoder checkpoint, weights), from step_inputs' numpy seed."""
+    from neupan_torch.ops.nrmp import AdjustParams, NRMPSpec
+    from neupan_torch.ops.pan import PANSpec
+    from scripts.make_torch_goldens import step_inputs
+
+    P = 128
+    robot = Robot.create(receding=T, step_time=0.1, **ROBOT)
+    nrmp = NRMPSpec(T=T, K=K, kinematics="diff", speed_bound=tuple(robot.speed_bound[:, 0]),
+                    acce_bound=tuple(robot.acce_bound[:, 0]))
+    spec = PANSpec(robot=robot, nrmp=nrmp, dune_max_num=P, admm=admm)
+    inp = {k: torch.from_numpy(v) for k, v in step_inputs(seed, T, P, K, B).items()}
+    args = [inp[k] for k in ("nom_s", "nom_u", "ref_s", "ref_us", "pts1", "vels1", "mask1")]
+    adjust = AdjustParams(*(torch.tensor(v) for v in (1.0, 1.0, 10.0, 1.0, 0.1)))
+    return spec, robot, args, adjust, os.path.join(ROOT, "examples/model/diff_robot_default/model.npz")
+
+
+def _run_step(spec, robot, args, adjust, ckpt, dev, sl=slice(None)):
+    from neupan_torch.models import load_checkpoint
+    from neupan_torch.ops.nrmp import AdjustParams
+    from neupan_torch.parallel import batched_init_state, batched_planner_step
+
+    args = [a[sl].to(dev) for a in args]
+    return batched_planner_step(spec, load_checkpoint(ckpt, dev), *robot.tensors(dev),
+                                AdjustParams(*(t.to(dev) for t in adjust)), *args,
+                                batched_init_state(spec, args[0].shape[0], dev))
+
+
+def _route_counters():
+    import chip_smoke
+
+    return {**chip_smoke.wrappers(), **chip_smoke.twins()}
+
+
+def _noise_gated(setup, out, n):
+    """chip_smoke.py's noise_gate on the first n scenarios: opt_u card vs CPU
+    against the CPU's own under a 1e-6 change of ref_s."""
+    import chip_smoke
+
+    ref = _run_step(*setup, "cpu", sl=slice(0, n))
+    args = list(setup[2])
+    args[2] = args[2] * (1.0 + 1e-6)
+    noisy = _run_step(*setup[:2], args, *setup[3:], "cpu", sl=slice(0, n))
+    per = lambda a, b: (a.opt_u[:n].cpu() - b.opt_u).abs().amax(dim=(1, 2))
+    return chip_smoke.noise_gate("step", per(out, ref), per(noisy, ref))
+
+
+@pytest.mark.gpu
+def test_fullspace_step_at_b512_matches_cpu(cuda):
+    """ADMMConfig(condense_admm=False) at the flagship shapes, B=512: the
+    full-space ADMM runs its (63, 181) iterations in the admm kernel and its
+    normal matrix through the sweep. The planner's output moves far more
+    than 5e-4 under float32 rounding on this path, so opt_u card vs CPU on
+    32 scenarios is held to the CPU's own spread (chip_smoke.py:noise_gate)."""
+    from neupan_torch.ops.qp import ADMMConfig
+
+    setup = _solver_step(10, 10, 512, ADMMConfig(condense_admm=False))
+    counters = _route_counters()
+    before = {k: c.launches for k, c in counters.items()}
+    out = _run_step(*setup, cuda)
+    torch.cuda.synchronize()
+    got = {k: c.launches - before[k] for k, c in counters.items()}
+    assert got == {"select": 2, "select_topk": 0, "mlp": 2, "sweep": 6, "admm": 4, "polish": 10,
+                   "admm_plain": 0, "polish_plain": 0, "cholesky": 0, "banded": 0}
+    assert bool(torch.isfinite(out.opt_u).all())
+    _noise_gated(setup, out, 32)
+
+
+@pytest.mark.gpu
+def test_banded_t30_step_matches_cpu(cuda):
+    """ADMMConfig(condense_admm=False, inverse="banded") at T=30, B=16: the
+    normal matrix through the block-tridiagonal route (library calls), the
+    (183, 541) iterations on the plain version; opt_u card vs CPU held to
+    the CPU's own spread (chip_smoke.py:noise_gate)."""
+    import chip_smoke
+    from neupan_torch.ops.pan import _admm_with_elim
+    from neupan_torch.ops.qp import ADMMConfig
+
+    setup = _solver_step(30, 10, 16, ADMMConfig(condense_admm=False, inverse="banded"))
+    counters = _route_counters()
+    before = {k: c.launches for k, c in counters.items()}
+    out = _run_step(*setup, cuda)
+    torch.cuda.synchronize()
+    got = {k: c.launches - before[k] for k, c in counters.items()}
+    want = chip_smoke.qp_routes(setup[0].nrmp, _admm_with_elim(setup[0]), 2)
+    assert want["banded"] == 4 and want["admm_plain"] == 4
+    assert got == {"select": 2, "select_topk": 0, "mlp": 2, **want}
+    assert bool(torch.isfinite(out.opt_u).all())
+    _noise_gated(setup, out, 16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("soft", [False, True])
+@pytest.mark.parametrize("polish", [True, False])
+def test_solve_qp_batch_on_the_card_matches_cpu(cuda, soft, polish):
+    """solve_qp_batch on tests/test_qp.py's generic QPs (chip_smoke.py's
+    generic_qps), B=64: x within 5e-4 of the CPU's, the full-space phases
+    and polish candidates through the sweep and admm kernels."""
+    import chip_smoke
+    from neupan_torch.ops.qp import ADMMConfig, solve_qp_batch
+
+    qp = chip_smoke.generic_qps(torch, 64, 5, soft)
+    cfg = ADMMConfig(iters=200, polish=polish)
+    ref = solve_qp_batch(qp, cfg)
+    n0, a0 = SW.sweep_spd_inverse.launches, AD.admm_iterate.launches
+    sol = solve_qp_batch(type(qp)(*(None if t is None else t.to(cuda) for t in qp)), cfg)
+    torch.cuda.synchronize()
+    assert SW.sweep_spd_inverse.launches - n0 == 2 + (10 if polish else 0)
+    assert AD.admm_iterate.launches - a0 == 2
+    assert float((sol.x.cpu() - ref.x).abs().max()) <= 5e-4

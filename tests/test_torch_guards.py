@@ -44,6 +44,13 @@ def test_port_sources_import_nothing_of_jax(path):
             assert root not in FORBIDDEN, (path, name)
 
 
+def test_scan_covers_the_solver_modules():
+    """The block-tridiagonal factorization and the solver scripts of the
+    port are scanned and imported without JAX with the rest."""
+    for rel in ("neupan_torch/ops/banded.py", "neupan_torch/ops/qp.py", "chip_smoke.py"):
+        assert os.path.join(ROOT, rel) in PORT_FILES, rel
+
+
 def test_port_and_chip_smoke_run_without_jax_in_the_process():
     mods = sorted({os.path.relpath(p, ROOT)[:-3].replace(os.sep, ".").removesuffix(".__init__")
                    for p in PORT_FILES if "neupan_torch" in p})

@@ -29,6 +29,7 @@ from neupan_torch import NeuPan
 from neupan_torch.ops import qp as tqp
 from neupan_torch.ops.kernels import admm as AD
 from neupan_torch.ops.kernels import polish as PO
+from neupan_torch.ops.kernels import sweep as SW
 from neupan_torch.ops.nrmp import AdjustParams, NRMPSpec
 from neupan_torch.ops.pan import PANState, pan_forward
 from neupan_torch.parallel import batched_init_state
@@ -158,9 +159,8 @@ def test_admission_predicates_route_the_qp_stages(monkeypatch):
         As = torch.from_numpy(rng.normal(size=(1, m, k)).astype(np.float32)) / k
         H = torch.eye(k)[None] * 2.0
         ls, us = -torch.ones(1, m), torch.ones(1, m)
-        w, z, y = tqp._condensed_phases_batched(cfg, H, torch.ones(1, k), As, ls, us,
-                                                torch.zeros(1, m), torch.zeros(1, k),
-                                                torch.zeros(1, m))
+        w, z, y = tqp._admm_phases(cfg, H, torch.ones(1, k), As, ls, us, torch.zeros(1, m),
+                                   torch.zeros(1, k), torch.zeros(1, m), SW.spd_inverse_any)
         assert bool(torch.isfinite(w).all() & torch.isfinite(y).all())
     assert calls == [("admm_iterate", (148, 30))] * 2 + [("admm_iterate_plain", (508, 90))] * 2
 
