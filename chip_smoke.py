@@ -101,6 +101,23 @@
      epoch and device time per update, a checkpoint loaded back and
      ``DuneTrainer.test`` through the fused MLP, and ``NeuPan.train_dune``
      followed by a tick that must run the fused MLP on the trained weights.
+   * sharded: the scenario axis split over a mesh (``sharded_path``):
+     three chained steps through ``sharded_planner_step`` on a mesh of
+     every card and on four shards of 128 on card 0: each shard equal bit
+     for bit to the batched step on its own scenarios, against the batched
+     step on all 512 opt_u to 5e-4 and min_distance to 1e-4 relative and
+     1e-5 absolute (32 scenarios also against the CPU), each kernel
+     launched exactly len(mesh) times as often as in the batched step; host ms, device busy ms and kernels per step beside
+     the batched step's at B=512, and at one scenario per shard beside
+     B=1; one step inside ``neupan_torch.utils.profile_trace``, whose trace
+     must name every hand kernel. Then the data-parallel DUNE training
+     update at full width (``train_data_parallel``: batch 256 over four
+     shards, the gradients summed on card 0, one Adam step) against the
+     single-device update.
+   * precision_default: three chained steps with
+     ``PANSpec(precision="default")`` beside ``"highest"``
+     (``precision_path``): TF32 on in the assembly and off in the QP, the
+     flag back off after each step, the opt_u gap and both device times.
 
 Prints the kernels' JSON line, the paths' JSON line, the card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``; the
@@ -111,6 +128,7 @@ result line, when no card is present or any check fails.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
 import subprocess
@@ -224,6 +242,15 @@ TRAIN_LABEL_FLIPS = 10
 TRAIN_LOSS_RTOL, TRAIN_W_TIGHT, TRAIN_W_CAP, TRAIN_W_BEYOND = 1e-4, 1e-3, 0.1, 0.01
 # the fused MLP against the module on trained weights: the mlp path's bound
 TRAIN_MLP_ATOL = 1e-5
+# the sharded path: the scenario axis split over a mesh of every card and over four
+# shards on card 0, held against the batched step at tests/test_parallel.py's bound
+# (a shard's smaller batch blocks the library matmuls otherwise, so rounding moves)
+SHARDS = 4
+SHARDED_RTOL, SHARDED_ATOL = 1e-4, 1e-5
+SHARDED_REPS = 5
+# the sentinel matmul of the precision path: TF32 rounds its inputs to 10 bits of
+# mantissa, so a 1024-long float32 product moves by far more than float32 rounding
+SENTINEL_N = 1024
 # examples/dune_train/dune_train_diff.yaml (held equal by tests/test_torch_training.py)
 DUNE_TRAIN_DIFF = {
     "robot": {"kinematics": "diff", "max_speed": [8, 1], "max_acce": [8, 3], "length": 1.6,
@@ -1994,6 +2021,367 @@ def train_path(torch, dev):
     return launches, report
 
 
+def run_sharded_chain(torch, spec, mesh, encoder, geom, adjust, data, sl=slice(None),
+                      steps=STEPS):
+    """``steps`` chained ``sharded_planner_step`` calls over ``mesh``, the
+    trajectory and the state carried as the step returns them (sharded);
+    returns the outputs of each step."""
+    from neupan_torch.parallel import batched_init_state, sharded_planner_step
+
+    nom_s, nom_u = data["nom_s"][sl], data["nom_u"][sl]
+    state = batched_init_state(spec, nom_s.shape[0], nom_s.device)
+    outs = []
+    for i in range(steps):
+        out = sharded_planner_step(spec, mesh, encoder, *geom, adjust, nom_s, nom_u,
+                                   data["ref_s"][sl], data["ref_us"][sl], data["pts"][i][sl],
+                                   data["vels"][sl], data["mask"][sl], state)
+        outs.append(out)
+        nom_s, nom_u, state = out.opt_s, out.opt_u, out.state
+    return outs
+
+
+def one_step(torch, spec, encoder, geom, adjust, data, B, mesh=None):
+    """A call of one planner step on the first B scenarios of ``data``
+    (batched, or sharded over ``mesh``), for timing."""
+    from neupan_torch.parallel import batched_init_state, batched_planner_step, \
+        scenario_sharding, sharded_planner_step
+
+    sl = slice(0, B)
+    args = [data[k][sl] for k in ("nom_s", "nom_u", "ref_s", "ref_us")]
+    args += [data["pts"][0][sl], data["vels"][sl], data["mask"][sl]]
+    state = batched_init_state(spec, B, args[0].device)
+    if mesh is None:
+        return lambda: batched_planner_step(spec, encoder, *geom, adjust, *args, state)
+    # placed once, as a chained step finds its inputs
+    split = scenario_sharding(mesh)
+    args, state = [split.put(a) for a in args], split.put(state)
+    return lambda: sharded_planner_step(spec, mesh, encoder, *geom, adjust, *args, state)
+
+
+def _fields(out, ref):
+    """(name, out's tensor, ref's tensor) of every output and carried field."""
+    from neupan_torch.ops.pan import PANOutput, PANState
+
+    return ([(f, getattr(out, f), getattr(ref, f)) for f in PANOutput._fields[:-1]]
+            + [(f"state.{f}", getattr(out.state, f), getattr(ref.state, f))
+               for f in PANState._fields])
+
+
+def shards_vs_parts(torch, name, outs, parts):
+    """Each shard q of each chained sharded step against the batched step
+    run on that shard's scenarios alone, chained the same (``parts[q]``):
+    every field and the carried state equal, bit for bit. The per-shard
+    computation is the batched step, so nothing else may differ."""
+    from neupan_torch.ops.pan import PANState
+
+    for i, out in enumerate(outs):
+        for q, part in enumerate(parts):
+            shard = type(out)(*(None if f is None else f.shards[q] for f in out[:-1]),
+                              PANState(*(f.shards[q] for f in out.state)))
+            for field, a, b in _fields(shard, part[i]):
+                check(torch.equal(a.to(b.device), b), f"{name}, step {i}, shard {q}: {field} "
+                      "differs from the batched step on the shard's scenarios")
+
+
+def sharded_vs_batched(torch, name, outs, refs):
+    """Chained sharded outputs against the batched step on the whole batch:
+    opt_u within the cross-backend 5e-4, min_distance at SHARDED_RTOL/ATOL.
+    Returns the largest difference of each field and the opt_u elements
+    beyond SHARDED_RTOL/ATOL: the batched step itself moves by that much
+    between a batch of 512 and of 128 (library matmuls block by batch)."""
+    from neupan_torch.parallel import gather
+
+    worst, beyond = {}, 0
+    for i, (out, ref) in enumerate(zip(outs, refs)):
+        out = gather(out, ref.opt_u.device)
+        for field, a, b in _fields(out, ref):
+            if a.dtype != torch.bool:
+                worst[field] = max(worst.get(field, 0.0), float((a - b).abs().max()))
+        du = float((out.opt_u - ref.opt_u).abs().max())
+        check(du <= 5e-4, f"{name}, step {i}: opt_u differs from the batched step by {du}")
+        check(bool(torch.isclose(out.min_distance, ref.min_distance, rtol=SHARDED_RTOL,
+                                 atol=SHARDED_ATOL).all()),
+              f"{name}, step {i}: min_distance differs from the batched step")
+        beyond += int((~torch.isclose(out.opt_u, ref.opt_u, rtol=SHARDED_RTOL,
+                                      atol=SHARDED_ATOL)).sum())
+    return {"max_abs": worst, "opt_u_beyond_rtol_atol": beyond,
+            "opt_u_elements": sum(r.opt_u.numel() for r in refs)}
+
+
+def trace_phase(torch, run):
+    """``neupan_torch.utils.profile_trace`` around ``run``: the trace file
+    must exist and name every hand kernel that the run launches (``ENTRIES``
+    of each kernel with launches in PER_STEP)."""
+    import shutil
+    import tempfile
+
+    from neupan_torch.utils import profile_trace
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trace_", dir=os.path.join(ROOT, "build"))
+    with profile_trace(tmp) as where:
+        run()
+    files = [f for f in os.listdir(where) if f.endswith(".pt.trace.json")]
+    check(len(files) == 1, f"profile_trace wrote {os.listdir(where)}, not one trace")
+    path = os.path.join(where, files[0])
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    found = {k: sorted({n for n in names for entry in ENTRIES[k] if entry in n})[:2]
+             for k, n_per in PER_STEP.items() if n_per}
+    missing = [k for k, v in found.items() if not v]
+    check(not missing, f"profile_trace: the trace names no entry of {missing}")
+    report = {"trace_bytes": os.path.getsize(path), "events": len(events),
+              "kernel_events": len(kernels), "hand_kernel_entries": found}
+    shutil.rmtree(tmp)
+    return report
+
+
+def sharded_path(torch, dev):
+    """The scenario axis split over a mesh (``neupan_torch.parallel``), at the
+    flagship batch B=512 (diff robot, T=10, P=2048, K=10):
+
+    a. a mesh of every card (``make_mesh()``; one on a one-card machine):
+       three chained steps, launches counted (len(mesh) times the batched
+       step's); each shard bit for bit the batched step on card 0 on its
+       own scenarios (the whole batch on one card), and against the
+       batched step on the whole batch opt_u to 5e-4 and min_distance to
+       SHARDED_RTOL/ATOL (``sharded_vs_batched``: a batch of 128 rounds
+       otherwise than one of 512, so opt_u moves by up to ~1e-4 between
+       them with no sharding at all);
+    b. ``Mesh((cuda:0,) * 4)``, four shards of 128 on card 0: the same,
+       with the first B_CPU scenarios also against the CPU (opt_u to 5e-4,
+       nrmp_valid equal), and host ms, device busy ms and kernels per step
+       beside the batched step's, at B=512 and at B=4 (one scenario per
+       shard) beside B=1; the same for a. where it has more than one card;
+    c. one four-shard step inside ``profile_trace``: its trace must name
+       each hand kernel's entries.
+    """
+    from neupan_torch.parallel import Mesh, gather, make_mesh
+
+    spec, encoder, geom, adjust, data = flagship(torch, dev, B_MAIN)
+    refs = run_chain(torch, spec, encoder, geom, adjust, data, dev=dev)
+    meshes = {"every_card": make_mesh(), "card0_x4": Mesh((dev,) * SHARDS)}
+    print(f"[sharded] a mesh of every card: {len(meshes['every_card'])} device(s), "
+          f"{[str(d) for d in meshes['every_card'].devices]}", file=sys.stderr)
+    total, report = dict.fromkeys(KERNELS, 0), {}
+    for key, mesh in meshes.items():
+        n = len(mesh)
+        outs, launches = counted(
+            torch, f"sharded ({key})", {k: v * STEPS * n for k, v in PER_STEP.items()},
+            lambda: run_sharded_chain(torch, spec, mesh, encoder, geom, adjust, data))
+        for k in KERNELS:
+            total[k] += launches[k]
+        for out in outs:
+            check(all(len(f) == n for f in (*out[:-1], *out.state)),
+                  f"sharded ({key}): an output is not split into {n} shards")
+        b = B_MAIN // n
+        parts = [refs] if n == 1 else [
+            run_chain(torch, spec, encoder, geom, adjust, data, sl=slice(q * b, (q + 1) * b),
+                      dev=dev) for q in range(n)]
+        shards_vs_parts(torch, f"sharded ({key})", outs, parts)
+        rep = {"devices": [str(d) for d in mesh.devices], "B": B_MAIN, "B_per_shard": b,
+               "launches": {k: launches[k] for k in KERNELS}, "shards_equal_batched_parts": True,
+               "vs_batched_B512": sharded_vs_batched(torch, f"sharded ({key})", outs, refs)}
+        if key == "card0_x4":
+            cpu = to_cpu(encoder, geom, adjust)
+            outs_cpu = run_chain(torch, spec, *cpu, data, sl=slice(0, B_CPU),
+                                 dev=torch.device("cpu"))
+            du = []
+            for i, (o, oc) in enumerate(zip(outs, outs_cpu)):
+                o = gather(o, dev)
+                du.append(float((o.opt_u[:B_CPU].cpu() - oc.opt_u).abs().max()))
+                check(du[-1] <= 5e-4, f"sharded ({key}), step {i}: opt_u card vs CPU differ by "
+                      f"{du[-1]} > 5e-4")
+                check(torch.equal(o.nrmp_valid[:B_CPU].cpu(), oc.nrmp_valid),
+                      f"sharded ({key}), step {i}: nrmp_valid differs between card and CPU")
+            rep.update(opt_u_card_vs_cpu_max=max(du), cpu_scenarios=B_CPU)
+        if n > 1:
+            timed = lambda B, m: host_and_device(
+                torch, one_step(torch, spec, encoder, geom, adjust, data, B, m), SHARDED_REPS)
+            rep["batched_B512"], rep["sharded_B512"] = timed(B_MAIN, None), timed(B_MAIN, mesh)
+            rep["batched_B1"], rep[f"sharded_B{n}"] = timed(1, None), timed(n, mesh)
+        report[key] = rep
+    report["profile_trace"] = trace_phase(
+        torch, one_step(torch, spec, encoder, geom, adjust, data, B_MAIN, meshes["card0_x4"]))
+    print(f"[sharded] {json.dumps(report)}", file=sys.stderr)
+    return total, report
+
+
+def precision_path(torch, dev):
+    """``PANSpec(precision="default")`` beside ``"highest"``: three chained
+    flagship steps each, launches counted. A sentinel matmul
+    (SENTINEL_N square) must differ from the exact one inside
+    ``matmul_precision("default")``; inside the default step the NRMP
+    assembly (``ops/pan.py:build_qp``) must see TF32 allowed and compute the
+    sentinel as far from the exact product as the scope did, the QP's solve (``ops/qp.py:_solve``) must see it
+    off, and the flag must read off again after each step. Reports the opt_u
+    difference of the two precisions (median, max), both paths' device busy
+    ms and ms per step, and the library kernels one step launches at one
+    precision and not at the other (names and launches).
+    No accuracy gate beyond finite outputs: the JAX package offers the
+    option as a trade of accuracy for speed."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import neupan_torch.ops.pan as PAN
+    import neupan_torch.ops.qp as QP
+    from neupan_torch import matmul_precision
+
+    flags = torch.backends.cuda.matmul
+    check(flags.allow_tf32 is False, "the package did not pin exact float32 CUDA matmuls")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    a, b = (torch.randn((SENTINEL_N, SENTINEL_N), device=dev, generator=gen) for _ in range(2))
+    exact = a @ b
+    with matmul_precision("default"):
+        tf32 = a @ b
+    check(flags.allow_tf32 is False, "matmul_precision left TF32 on")
+    sentinel = float((tf32 - exact).abs().max())
+    check(sentinel > 0, "matmul_precision('default') did not change a float32 matmul")
+
+    runs, by_path, names = {}, {}, {}
+    for prec in ("highest", "default"):
+        spec, encoder, geom, adjust, data = flagship(torch, dev, B_MAIN, precision=prec)
+        seen = {"build_qp": set(), "_solve": set(), "sentinel": set()}
+        build_qp, solve = PAN.build_qp, QP._solve
+
+        def spy_build(*args, **kw):
+            seen["build_qp"].add(flags.allow_tf32)
+            seen["sentinel"].add(float((a @ b - exact).abs().max()) > sentinel / 2)
+            return build_qp(*args, **kw)
+
+        def spy_solve(*args, **kw):
+            seen["_solve"].add(flags.allow_tf32)
+            return solve(*args, **kw)
+
+        PAN.build_qp, QP._solve = spy_build, spy_solve
+        try:
+            outs, launches = counted(
+                torch, f"precision {prec}", {k: v * STEPS for k, v in PER_STEP.items()},
+                lambda: run_chain(torch, spec, encoder, geom, adjust, data, dev=dev))
+        finally:
+            PAN.build_qp, QP._solve = build_qp, solve
+        tf = prec == "default"
+        check(seen["build_qp"] == {tf} and seen["sentinel"] == {tf} and seen["_solve"] == {False},
+              f"precision {prec}: flags seen inside the step {seen}")
+        check(flags.allow_tf32 is False, f"precision {prec}: the step left TF32 on")
+        for out in outs:
+            check(bool(torch.isfinite(out.opt_u).all() & torch.isfinite(out.opt_s).all()),
+                  f"precision {prec}: non-finite planner output")
+        prof, _ = profile_step(torch, spec, encoder, geom, adjust, data)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+            one_step(torch, spec, encoder, geom, adjust, data, B_MAIN)()
+            torch.cuda.synchronize()
+        names[prec] = collections.Counter(
+            e.name for e in p.events() if e.device_type == DeviceType.CUDA)
+        runs[prec] = {"outs": outs, "ms_per_step": step_ms(torch, spec, encoder, geom, adjust,
+                                                            data, B_MAIN, 5),
+                      "device_busy_ms_per_step": prof["device_busy_ms_per_step"],
+                      "device_kernels_per_step": prof["device_kernels_per_step"]}
+        by_path[prec] = launches
+    du = torch.stack([(o.opt_u - r.opt_u).abs().amax(dim=(1, 2)) for o, r in
+                      zip(runs["default"].pop("outs"), runs["highest"].pop("outs"))])
+    # the library kernels that the scope swapped in: launched in the default
+    # step and not in the exact one, and the other way round
+    swapped = {f"only_{a}": {n[:120]: c for n, c in (names[a] - names[b]).most_common(6)}
+               for a, b in (("default", "highest"), ("highest", "default"))}
+    report = {"sentinel_max_abs_diff": sentinel, "B": B_MAIN, **runs, **swapped,
+              "opt_u_default_vs_highest_median": float(du.median()),
+              "opt_u_default_vs_highest_max": float(du.max()),
+              "opt_u_default_vs_highest_per_step_max": du.amax(dim=1).tolist()}
+    print(f"[precision] {json.dumps(report)}", file=sys.stderr)
+    return by_path["default"], report
+
+
+def train_data_parallel(torch, dev):
+    """The data-parallel DUNE training update at full width (``__graft_entry__.py``'s
+    dry run): a batch of TRAIN_BATCH labelled points in dune_train_diff.yaml's
+    range, the deployed diff encoder, one adam_l2 update at TRAIN_LR, split
+    over ``Mesh((cuda:0,) * 4)`` (four shards of 64) and over a mesh of every
+    card (``data_parallel_update``), against the same update on the whole
+    batch on one device: the summed gradients to 1e-5 of the largest, the
+    updated weights to the train path's bound (TRAIN_W_TIGHT of lr, at most
+    TRAIN_W_BEYOND of them beyond it, none beyond TRAIN_W_CAP of lr); host
+    ms, device busy ms and kernels of one update, sharded and not."""
+    from neupan_torch.models import load_checkpoint
+    from neupan_torch.parallel import Mesh, make_mesh
+    from neupan_torch.robot import Robot
+    from neupan_torch.training.dune_train import _loss_terms, rotation
+    from neupan_torch.training.labels import polygon_distance_labels
+    from neupan_torch.training.optim import Adam, exponential_decay
+
+    robot = Robot.create(receding=10, step_time=0.1, **DUNE_TRAIN_DIFF["robot"])
+    G, h = (torch.tensor(x, dtype=torch.float32, device=dev) for x in (robot.G, robot.h))
+    rng = np.random.default_rng(0)
+    lo, hi = DUNE_TRAIN_DIFF["train"]["data_range"][:2], DUNE_TRAIN_DIFF["train"]["data_range"][2:]
+    pts = torch.tensor(rng.uniform(lo, hi, (TRAIN_BATCH, 2)), dtype=torch.float32, device=dev)
+    mu, d = polygon_distance_labels(G, h, pts)
+    R = rotation(torch.tensor(rng.uniform(0, 2 * np.pi), dtype=torch.float32, device=dev))
+    ckpt = os.path.join(ROOT, "examples/model/diff_robot_default/model.npz")
+
+    def fresh():
+        net = load_checkpoint(ckpt, device=dev)
+        return net, Adam(list(net.parameters()), exponential_decay(TRAIN_LR, 0, 1.0))
+
+    def single(net, opt):
+        params = list(net.parameters())
+        grads = torch.autograd.grad(sum(_loss_terms(net, pts, mu, d, G, h, R)), params)
+        opt.step(params, grads)
+        return grads
+
+    net_ref, opt_ref = fresh()
+    ref = single(net_ref, opt_ref)
+    scale = max(float(g.abs().max()) for g in ref)
+    timed = fresh()
+    report = {"batch": TRAIN_BATCH, "lr": TRAIN_LR,
+              "single": host_and_device(torch, lambda: single(*timed), SHARDED_REPS)}
+    for key, mesh in (("card0_x4", Mesh((dev,) * SHARDS)), ("every_card", make_mesh())):
+        net, opt = fresh()
+        grads = data_parallel_update(torch, net, opt, mesh, (pts, mu, d), G, h, R)
+        g_rel = max(float((g.to(dev) - r).abs().max()) for g, r in zip(grads, ref)) / scale
+        diff = torch.cat([(p - q).detach().abs().flatten()
+                          for p, q in zip(net.parameters(), net_ref.parameters())])
+        beyond = int((diff > TRAIN_W_TIGHT * TRAIN_LR).sum())
+        check(g_rel <= 1e-5, f"train data-parallel ({key}): summed gradients differ from the "
+              f"single update's by {g_rel} of the largest")
+        check(beyond <= TRAIN_W_BEYOND * diff.numel() and float(diff.max()) <= TRAIN_W_CAP * TRAIN_LR,
+              f"train data-parallel ({key}): weights differ by up to {float(diff.max())} "
+              f"({beyond} of {diff.numel()} beyond {TRAIN_W_TIGHT * TRAIN_LR})")
+        report[key] = {"shards": len(mesh), "grad_rel_max": g_rel,
+                       "weights_max_abs_diff": float(diff.max()), "weights_beyond_tight": beyond,
+                       "update": host_and_device(
+                           torch, lambda: data_parallel_update(torch, *timed, mesh,
+                                                               (pts, mu, d), G, h, R),
+                           SHARDED_REPS)}
+    print(f"[train data-parallel] {json.dumps(report)}", file=sys.stderr)
+    return report
+
+
+def data_parallel_update(torch, net, opt, mesh, batch, G, h, R):
+    """One data-parallel DUNE training update (``__graft_entry__.py``'s
+    dry run): the batch ``(points, mu, d)`` split over ``mesh``, the
+    encoder replicated; each shard's replica takes the gradient of its
+    share of the loss (``dune_train._loss_terms`` weighted by the shard's
+    size over the batch's, so the shares sum to the batch's mean), the
+    gradients are summed on the mesh's first device, where ``net`` lies,
+    and ``opt`` updates ``net`` there once. Returns the summed gradients."""
+    from neupan_torch.parallel import replicated_sharding, scenario_sharding
+    from neupan_torch.training.dune_train import _loss_terms
+
+    p, mu, d = (scenario_sharding(mesh).put(t) for t in batch)
+    nets, Gs, hs, Rs = (replicated_sharding(mesh).put(x) for x in (net, G, h, R))
+    total = None
+    for i in range(len(mesh)):
+        terms = _loss_terms(nets[i], p.shards[i], mu.shards[i], d.shards[i], Gs[i], hs[i], Rs[i])
+        share = p.shards[i].shape[0] / p.shape[0]
+        grads = torch.autograd.grad(sum(terms) * share, list(nets[i].parameters()))
+        grads = [g.to(mesh.devices[0]) for g in grads]
+        total = grads if total is None else [a + g for a, g in zip(total, grads)]
+    opt.step(list(net.parameters()), total)
+    return total
+
+
 def profile_kernels(torch, run):
     """Device kernel time (us) and kernel count over one call of ``run``."""
     from torch.autograd import DeviceType
@@ -2107,6 +2495,9 @@ def main() -> None:
         check(by_path["lon"][name] > 0, f"lon path: {name} was not launched")
     by_path["train"], report["train"] = train_path(torch, dev)
     check(by_path["train"]["mlp"] > 0, "train path: mlp was not launched")
+    by_path["sharded"], report["sharded"] = sharded_path(torch, dev)
+    report["train_data_parallel"] = train_data_parallel(torch, dev)
+    by_path["precision_default"], report["precision_default"] = precision_path(torch, dev)
     card = card_name_and_power()
 
     entries = []

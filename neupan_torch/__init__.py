@@ -12,10 +12,14 @@ wrapper runs its plain PyTorch version (``neupan_torch/ops/kernels``).
 
 The package pins exact float32 arithmetic, as the JAX package does
 (``neupan_tpu/ops/pan.py``, ``ops/qp.py``): reduced-precision matmuls
-break the solver's accuracy contract.
+break the solver's accuracy contract. ``PANSpec(precision="default")``
+lets a planner step's CUDA matmuls use TF32 (``matmul_precision``); the
+QP switches back to exact float32 inside it.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 __version__ = "0.1.0"
 
@@ -47,6 +51,29 @@ def same_device(*tensors: torch.Tensor) -> torch.device:
     if len(devices) != 1:
         raise ValueError(f"inputs sit on different devices: {sorted(map(str, devices))}")
     return devices.pop()
+
+
+PRECISIONS = ("highest", "default")
+
+
+@contextlib.contextmanager
+def matmul_precision(precision: str):
+    """Run the block with the CUDA float32 matmuls exact (``"highest"``) or
+    with TF32 allowed (``"default"``): the JAX package's
+    ``jax.default_matmul_precision`` scope. The flag is process-global, so
+    it is restored on exit, also when the block raises. Only the CUDA
+    matmul flag is set: the CPU's matmuls, and the hand kernels' own
+    arithmetic, stay as they are.
+    """
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
+    flags = torch.backends.cuda.matmul
+    before = flags.allow_tf32
+    flags.allow_tf32 = precision == "default"
+    try:
+        yield
+    finally:
+        flags.allow_tf32 = before
 
 
 # the facade imports the modules above it, so it comes last

@@ -19,7 +19,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from neupan_torch import resolve_device, same_device
+from neupan_torch import PRECISIONS, matmul_precision, resolve_device, same_device
 from neupan_torch.ops.banded import nrmp_permutation
 from neupan_torch.ops.dune import (DuneOutput, dune_forward, dune_forward_flow,
                                    generate_point_flow)
@@ -43,9 +43,11 @@ class PANSpec:
     # ADMM budget of the PAN iterations after the first (None = admm.iters):
     # they re-solve a nearly identical QP from the previous solution
     admm_warm_iters: Optional[int] = 120
-    # Matmul precision of the whole step. The package pins exact float32
-    # (TF32 off, neupan_torch/__init__.py): reduced precision breaks the
-    # solver's accuracy contract, so "highest" is the only value taken.
+    # Matmul precision of the step's PyTorch matmuls on a card: "highest"
+    # is exact float32 (the package's pin, neupan_torch/__init__.py);
+    # "default" allows TF32, trading accuracy for speed, as in the JAX
+    # package. The QP solve and its backward stay exact either way, and the
+    # hand kernels keep their own arithmetic.
     precision: str = "highest"
     # Top-k obstacle selection: "exact" ranks points by the closed-form
     # polygon distance and runs the encoder on the K winners per frame;
@@ -65,10 +67,10 @@ class PANSpec:
     dune_mlp_kernel: Optional[bool] = None
 
     def __post_init__(self):
-        if self.precision != "highest":
+        if self.precision not in PRECISIONS:
             raise ValueError(
-                f'precision={self.precision!r}: neupan_torch pins exact float32 matmuls '
-                '(TF32 off), so only "highest" is available')
+                f'precision must be "highest" (exact float32) or "default" (TF32 matmuls '
+                f'outside the QP), got {self.precision!r}')
         if self.dune_select not in ("exact", "mlp"):
             raise ValueError(f'dune_select must be "exact" or "mlp", got {self.dune_select!r}')
 
@@ -189,11 +191,14 @@ def pan_forward(spec: PANSpec, encoder, vertices: torch.Tensor, G: torch.Tensor,
     ``ops/qp.py:_SolveQP``; the gradient reaches the second PAN iteration
     through the first one's trajectory. Otherwise the step runs under
     ``torch.no_grad()``.
+
+    The step's CUDA matmuls run at ``spec.precision`` (``matmul_precision``;
+    the QP pins exact float32 inside it), the flag restored on return.
     """
     same_device(vertices, G, h, nom_s, nom_u, ref_s, ref_us, points, velocities,
                 mask, *state, *adjust, *(p for p in encoder.parameters()))
     record = torch.is_grad_enabled() and any(t.requires_grad for t in adjust)
-    with torch.enable_grad() if record else torch.no_grad():
+    with matmul_precision(spec.precision), torch.enable_grad() if record else torch.no_grad():
         if spec.nrmp.no_obs:
             return _pan_forward_no_obs(spec, adjust, nom_s, nom_u, ref_s, ref_us, state)
         return _pan_forward_obs(spec, encoder, vertices, G, h, adjust, nom_s, nom_u,

@@ -39,7 +39,9 @@ package's gates do; no kernel error is caught.
 ``solve_qp`` is differentiable in the QP's fields (``_SolveQP``): the
 backward is the JAX package's implicit differentiation of the active-set
 KKT system at the solution, one batched linear solve; the forward keeps
-running the kernels above.
+running the kernels above. Both run with exact float32 matmuls, also
+inside a step at ``precision="default"`` (neupan_tpu/ops/qp.py pins
+"highest" for its solve and its backward alike).
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from neupan_torch import matmul_precision
 from neupan_torch.ops.banded import btd_spd_inverse
 from neupan_torch.ops.kernels.admm import admm_fits, admm_iterate, admm_iterate_plain
 from neupan_torch.ops.kernels.polish import box_candidate, box_candidate_plain, polish_fits
@@ -689,8 +692,9 @@ class _SolveQP(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, cfg, P_diag, q, A, l, u, soft, x0, y0, Z, xp):
-        sol = _solve(QPData(P_diag, q, A, l, u, soft), cfg, x0, y0,
-                     None if Z is None else (Z, xp))
+        with matmul_precision("highest"):
+            sol = _solve(QPData(P_diag, q, A, l, u, soft), cfg, x0, y0,
+                         None if Z is None else (Z, xp))
         ctx.cfg = cfg
         ctx.save_for_backward(P_diag, q, A, l, u, soft, sol.x, sol.y)
         # only the cotangent of the primal solution propagates
@@ -700,7 +704,8 @@ class _SolveQP(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gx, *_):
         P_diag, q, A, l, u, soft, x, y = ctx.saved_tensors
-        dqp = _solve_bwd_impl(ctx.cfg, QPData(P_diag, q, A, l, u, soft), x, y, gx)
+        with matmul_precision("highest"):
+            dqp = _solve_bwd_impl(ctx.cfg, QPData(P_diag, q, A, l, u, soft), x, y, gx)
         # the warm start gets zero cotangent, the elimination basis none
         return (None, *dqp, torch.zeros_like(x), torch.zeros_like(y), None, None)
 

@@ -1,6 +1,7 @@
 """Host-side helpers (own copies of ``neupan_tpu/utils``): timing, file
 resolution, angle wrapping, rigid transforms, convex-polygon half-spaces and
-decimation down-sampling, in plain numpy and Python.
+decimation down-sampling, in plain numpy and Python; and ``profile_trace``,
+the profiler hook (it imports torch when entered, not here).
 
 The port cannot import ``neupan_tpu.utils``: importing any ``neupan_tpu``
 module runs the package ``__init__``, which imports jax.
@@ -13,6 +14,7 @@ import itertools
 import os
 import sys
 import time
+from contextlib import contextmanager
 from math import cos, sin
 from typing import Callable, Optional, Tuple
 
@@ -161,3 +163,26 @@ def downsample_decimation(mat: np.ndarray, m: int) -> np.ndarray:
         return mat[:, :1]
     idx = (np.arange(m) * (n - 1)) // (m - 1)
     return mat[:, idx]
+
+
+@contextmanager
+def profile_trace(log_dir: str = "/tmp/neupan_trace"):
+    """Record the enclosed block with ``torch.profiler`` and write a
+    Chrome/Perfetto trace (``<worker>.<ms>.pt.trace.json``) into
+    ``log_dir``; yields ``log_dir``. The port's counterpart of the JAX
+    package's ``jax.profiler`` hook, for per-kernel analysis: host activity
+    always, the card's kernels where one is present (the card is
+    synchronized before the profiler stops, so the block's last kernels are
+    in the trace). View in Perfetto or ``chrome://tracing``.
+    """
+    import torch
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    cuda = torch.cuda.is_available()
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)):
+        try:
+            yield log_dir
+        finally:
+            if cuda:
+                torch.cuda.synchronize()

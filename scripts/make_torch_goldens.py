@@ -3,7 +3,8 @@
     PYTHONPATH=. python scripts/make_torch_goldens.py [name ...]
 
 Runs the JAX package on the CPU and writes the files under
-``tests/golden/torch/`` (all of them, or the named ones: ``planner_step``,
+``tests/golden/torch/`` (all of them but ``sharded_step``, which is written
+alone, or the named ones: ``planner_step``,
 ``qp_solve``, ``planner_step_mlp``, ``planner_step_noobs``,
 ``facade_corridor``, the ``loop_*`` goldens and the LON goldens):
 
@@ -66,6 +67,15 @@ Runs the JAX package on the CPU and writes the files under
   ``adamw``: every random draw (replayed from the trainer's key splits and
   held to its results.txt), the per-epoch loss terms and the weights
   (~1 min for both DUNE goldens).
+* ``sharded_step.npz`` — JAX's ``sharded_planner_step`` on 8 virtual CPU
+  devices (``make_mesh(8)``) at tests/test_parallel.py's ``small_spec()``
+  (T=3, K=2, P=8, ``ADMMConfig(iters=40)``, one PAN iteration) with its
+  ``batch_inputs`` at B=8 and B=16 (seed 0) and ``init_params(PRNGKey(0))``:
+  two chained steps each, the second from the first's trajectory and its
+  sharded state, on the points of ``batch_inputs(seed=1)``; the inputs,
+  the weights, and each step's outputs and state (~1 min). It needs the 8
+  devices, so it is written in a process of its own
+  (``python scripts/make_torch_goldens.py sharded_step``).
 
 Compiling the JAX step and the accurate warm-start solves takes a few
 minutes on a CPU.
@@ -1236,6 +1246,50 @@ def write_facade_solvers_golden(path: str) -> None:
     np.savez(path, **{k: np.asarray(v) for k, v in rec.items()})
 
 
+SHARDED_BATCHES = (8, 16)
+SHARDED_DEVICES = 8
+PAN_STATE_FIELDS = ("prev_mu", "prev_lam", "prev_s", "prev_u", "prev_valid", "prev_has_points",
+                    "x_warm", "y_warm")
+
+
+def write_sharded_golden(path: str) -> None:
+    """JAX's ``sharded_planner_step`` on the 8-device virtual CPU mesh at
+    tests/test_parallel.py's shapes: two chained steps at each of
+    SHARDED_BATCHES (module docstring)."""
+    jax = _jax_setup()
+    if len(jax.devices()) != SHARDED_DEVICES:
+        sys.exit(f"sharded_step needs {SHARDED_DEVICES} virtual CPU devices, found "
+                 f"{len(jax.devices())}: write it in a process of its own")
+    import jax.numpy as jnp
+
+    from neupan_tpu.parallel import batched_init_state, make_mesh, sharded_planner_step
+    from tests.test_parallel import batch_inputs, shared, small_spec
+
+    spec = small_spec()
+    params, G, h, adj = shared(spec)
+    mesh = make_mesh(SHARDED_DEVICES)
+    step = jax.jit(lambda st, *a: sharded_planner_step(spec, mesh, params, G, h, adj, *a, st))
+    rec = {f"param_{k}": np.asarray(v) for k, v in params.items()}
+    rec.update({f"adjust_{k}": np.asarray(v) for k, v in adj._asdict().items()})
+    names = ("nom_s", "nom_u", "ref_s", "ref_us", "pts", "vels", "mask")
+    for B in SHARDED_BATCHES:
+        args = batch_inputs(spec, B)
+        pts2 = batch_inputs(spec, B, seed=1)[4]
+        rec.update({f"B{B}_{n}": np.asarray(a) for n, a in zip(names, args)})
+        rec[f"B{B}_pts2"] = np.asarray(pts2)
+        out1 = step(batched_init_state(spec, B), *args)
+        out2 = step(out1.state, out1.opt_s, out1.opt_u, *args[2:4], pts2, *args[5:])
+        for i, out in ((1, out1), (2, out2)):
+            assert len(out.opt_u.sharding.device_set) == SHARDED_DEVICES
+            for name in ("opt_s", "opt_u", "opt_d", "min_distance", "nrmp_valid"):
+                rec[f"B{B}_{name}_{i}"] = np.asarray(getattr(out, name))
+            for name in PAN_STATE_FIELDS:
+                rec[f"B{B}_state_{name}_{i}"] = np.asarray(getattr(out.state, name))
+        print(f"sharded_step B={B}: opt_u[0] {np.asarray(out2.opt_u)[0].tolist()}")
+    np.savez(path, T=spec.robot.T, K=spec.nrmp.K, P=spec.dune_max_num,
+             devices=SHARDED_DEVICES, **rec)
+
+
 WRITERS = {
     "planner_step": lambda p: write_step_golden(p, "fused"),
     "qp_solve": write_qp_golden,
@@ -1256,14 +1310,21 @@ WRITERS = {
     "qp_banded_t30": write_qp_banded_golden,
     "facade_solvers": write_facade_solvers_golden,
     "qp_fullspace_f64": write_qp_fullspace_f64_golden,
+    "sharded_step": write_sharded_golden,
 }
 
 
 def main() -> None:
-    names = sys.argv[1:] or list(WRITERS)
+    names = sys.argv[1:] or [n for n in WRITERS if n != "sharded_step"]
     unknown = [n for n in names if n not in WRITERS]
     if unknown:
         sys.exit(f"unknown golden {unknown}; choose from {list(WRITERS)}")
+    if "sharded_step" in names:
+        if len(names) > 1:
+            sys.exit("write sharded_step alone: its process has 8 virtual devices")
+        # the virtual devices exist only if asked for before jax loads
+        os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") + " --xla_force_host_platform_"
+                                   f"device_count={SHARDED_DEVICES}").strip()
     os.makedirs(GOLDEN_DIR, exist_ok=True)
     for name in names:
         WRITERS[name](os.path.join(GOLDEN_DIR, f"{name}.npz"))

@@ -906,3 +906,145 @@ def test_solve_qp_batch_on_the_card_matches_cpu(cuda, soft, polish):
     assert SW.sweep_spd_inverse.launches - n0 == 2 + (10 if polish else 0)
     assert AD.admm_iterate.launches - a0 == 2
     assert float((sol.x.cpu() - ref.x).abs().max()) <= 5e-4
+
+
+# -- the scenario mesh, precision="default" and profile_trace on the card ----------
+
+def _golden_step(dev, **spec_kw):
+    """The planner-step golden's first call (B=4) as arguments on ``dev``."""
+    from neupan_torch.models import load_checkpoint
+    from neupan_torch.ops.nrmp import AdjustParams, NRMPSpec
+    from neupan_torch.ops.pan import PANSpec
+    from neupan_torch.parallel import batched_init_state
+
+    with np.load(os.path.join(ROOT, "tests", "golden", "torch", "planner_step.npz")) as g:
+        g = {k: torch.from_numpy(g[k]) for k in g.files}
+    T, P, K, B = (int(g[k]) for k in "TPKB")
+    robot = Robot.create(receding=T, step_time=0.1, **ROBOT)
+    nrmp = NRMPSpec(T=T, K=K, kinematics="diff", speed_bound=tuple(robot.speed_bound[:, 0]),
+                    acce_bound=tuple(robot.acce_bound[:, 0]))
+    spec = PANSpec(robot=robot, nrmp=nrmp, dune_max_num=P, **spec_kw)
+    enc = load_checkpoint(os.path.join(ROOT, "examples/model/diff_robot_default/model.npz"), dev)
+    adjust = AdjustParams(*(torch.tensor(v, device=dev) for v in (1.0, 1.0, 10.0, 1.0, 0.1)))
+    args = [g[k].to(dev) for k in ("nom_s", "nom_u", "ref_s", "ref_us", "pts1", "vels1", "mask1")]
+    return spec, enc, robot.tensors(dev), adjust, args, batched_init_state(spec, B, dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [1, 4])
+def test_sharded_step_on_one_card_matches_the_batched_step(cuda, shards):
+    """Mesh((cuda,) * shards): each kernel launches ``shards`` times as often
+    as in the batched step; each shard equals the batched step on its own
+    scenarios; opt_u and min_distance equal the batched step's on one
+    shard, at tests/test_parallel.py's bound on four; the outputs stay
+    split."""
+    from neupan_torch.parallel import Mesh, batched_planner_step, gather, sharded_planner_step
+
+    spec, enc, geom, adjust, args, state = _golden_step(cuda)
+    ref = batched_planner_step(spec, enc, *geom, adjust, *args, state)
+    wrappers = (SE.select_topk_flow, SW.sweep_spd_inverse, AD.admm_iterate, PO.box_candidate,
+                ML.dune_mlp)
+    before = [w.launches for w in wrappers]
+    out = sharded_planner_step(spec, Mesh((cuda,) * shards), enc, *geom, adjust, *args, state)
+    torch.cuda.synchronize()
+    assert [w.launches - n for w, n in zip(wrappers, before)] == [shards * c for c in
+                                                                  (2, 6, 4, 10, 2)]
+    assert len(out.opt_u) == shards and len(out.state.x_warm) == shards
+    for q in range(shards):      # each shard is the batched step on its own scenarios
+        b = len(args[0]) // shards
+        part = batched_planner_step(spec, enc, *geom, adjust, *(a[q * b:(q + 1) * b] for a in args),
+                                    type(state)(*(v[q * b:(q + 1) * b] for v in state)))
+        assert torch.equal(out.opt_u.shards[q], part.opt_u)
+        assert torch.equal(out.state.y_warm.shards[q], part.state.y_warm)
+    got = gather(out)
+    for name in ("opt_u", "min_distance"):
+        a, b = getattr(got, name), getattr(ref, name)
+        if shards == 1:
+            assert torch.equal(a, b)
+        else:
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_make_mesh_takes_every_card(cuda):
+    from neupan_torch.parallel import make_mesh
+
+    mesh = make_mesh()
+    assert mesh.devices == tuple(torch.device("cuda", i) for i in range(torch.cuda.device_count()))
+    with pytest.raises(ValueError, match="present"):
+        make_mesh(torch.cuda.device_count() + 1)
+
+
+@pytest.mark.gpu
+def test_precision_default_turns_tf32_on_outside_the_qp_only(cuda, monkeypatch):
+    """A "default" step allows TF32 in its assembly (a matmul there differs
+    from the exact one), not in the QP's solve, and leaves the flag off."""
+    import neupan_torch.ops.pan as PAN
+    import neupan_torch.ops.qp as QP
+    from neupan_torch.parallel import batched_planner_step
+
+    flags = torch.backends.cuda.matmul
+    a = torch.randn((512, 512), device=cuda, generator=torch.Generator(cuda).manual_seed(0))
+    exact, seen = a @ a, []
+    build_qp, solve = PAN.build_qp, QP._solve
+
+    def spy_build(*x, **k):
+        seen.append(("qp", flags.allow_tf32, bool(torch.equal(a @ a, exact))))
+        return build_qp(*x, **k)
+
+    def spy_solve(*x, **k):
+        seen.append(("solve", flags.allow_tf32, None))
+        return solve(*x, **k)
+
+    monkeypatch.setattr(PAN, "build_qp", spy_build)
+    monkeypatch.setattr(QP, "_solve", spy_solve)
+    spec, enc, geom, adjust, args, state = _golden_step(cuda, precision="default")
+    out = batched_planner_step(spec, enc, *geom, adjust, *args, state)
+    assert flags.allow_tf32 is False and bool(torch.isfinite(out.opt_u).all())
+    assert {s for s in seen if s[0] == "qp"} == {("qp", True, False)}
+    assert {s for s in seen if s[0] == "solve"} == {("solve", False, None)}
+
+
+@pytest.mark.gpu
+def test_profile_trace_of_a_card_step_names_the_hand_kernels(cuda, tmp_path):
+    import json
+
+    from neupan_torch.parallel import batched_planner_step
+    from neupan_torch.utils import profile_trace
+
+    spec, enc, geom, adjust, args, state = _golden_step(cuda)
+    with profile_trace(str(tmp_path)) as where:
+        batched_planner_step(spec, enc, *geom, adjust, *args, state)
+    (name,) = [f for f in os.listdir(where) if f.endswith(".pt.trace.json")]
+    with open(os.path.join(where, name)) as fh:
+        kernels = {e["name"] for e in json.load(fh)["traceEvents"] if e.get("cat") == "kernel"}
+    for entry in ("select_flow_kernel", "dune_mlp_kernel", "box_candidate_kernel"):
+        assert any(entry in k for k in kernels), entry
+    assert any("admm_" in k for k in kernels) and any("sweep_" in k for k in kernels)
+
+
+@pytest.mark.gpu
+def test_data_parallel_update_on_four_shards_of_the_card(cuda):
+    """chip_smoke.py's data-parallel DUNE update, batch 256 over four shards
+    of card 0, against the update on the whole batch: gradients to 1e-5 of
+    the largest, weights to 1e-3 of lr on all but 1%, 0.1 of lr on all."""
+    import chip_smoke
+    from neupan_torch.models import ObsPointNet
+    from neupan_torch.parallel import Mesh
+    from neupan_torch.training.dune_train import _loss_terms, rotation
+    from neupan_torch.training.optim import Adam, exponential_decay
+
+    G, h, pts, mu, d = _dune_data(cuda, n=256)
+    R = rotation(torch.tensor(0.7, device=cuda))
+    nets = [ObsPointNet.seeded(2, 4, seed=0, device=cuda) for _ in range(2)]
+    opts = [Adam(list(n.parameters()), exponential_decay(5e-5, 0, 1.0)) for n in nets]
+    params = list(nets[0].parameters())
+    ref = torch.autograd.grad(sum(_loss_terms(nets[0], pts, mu, d, G, h, R)), params)
+    opts[0].step(params, ref)
+    got = chip_smoke.data_parallel_update(torch, nets[1], opts[1], Mesh((cuda,) * 4),
+                                          (pts, mu, d), G, h, R)
+    scale = max(float(g.abs().max()) for g in ref)
+    assert max(float((a - b).abs().max()) for a, b in zip(got, ref)) <= 1e-5 * scale
+    diff = torch.cat([(a - b).detach().abs().flatten()
+                      for a, b in zip(nets[0].parameters(), nets[1].parameters())])
+    assert int((diff > 1e-3 * 5e-5).sum()) <= 0.01 * diff.numel() and float(diff.max()) <= 5e-6

@@ -47,7 +47,8 @@ def test_port_sources_import_nothing_of_jax(path):
 def test_scan_covers_the_solver_modules():
     """The block-tridiagonal factorization and the solver scripts of the
     port are scanned and imported without JAX with the rest."""
-    for rel in ("neupan_torch/ops/banded.py", "neupan_torch/ops/qp.py", "chip_smoke.py"):
+    for rel in ("neupan_torch/ops/banded.py", "neupan_torch/ops/qp.py", "chip_smoke.py",
+                "neupan_torch/parallel/__init__.py", "neupan_torch/utils/__init__.py"):
         assert os.path.join(ROOT, rel) in PORT_FILES, rel
 
 
@@ -74,7 +75,7 @@ def test_entry_points_default_to_the_card():
     from neupan_torch.models import load_checkpoint
     from neupan_torch.ops.nrmp import NRMPSpec
     from neupan_torch.ops.pan import PANSpec
-    from neupan_torch.parallel import batched_init_state
+    from neupan_torch.parallel import Mesh, batched_init_state, make_mesh
     from neupan_torch.robot import Robot
 
     robot = Robot.create(receding=4, kinematics="diff", length=1.6, width=2.0)
@@ -86,11 +87,16 @@ def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         assert resolve_device(None).type == "cuda"
         assert batched_init_state(spec, 2).x_warm.is_cuda
+        assert all(d.type == "cuda" for d in make_mesh().devices)
         return
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert batched_init_state(spec, 2, device="cpu").x_warm.device.type == "cpu"
+    # the mesh: CUDA cards unless the caller names its devices
+    with pytest.raises(RuntimeError, match="explicit devices"):
+        make_mesh()
+    assert Mesh((torch.device("cpu"),) * 2).devices == (torch.device("cpu"),) * 2
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

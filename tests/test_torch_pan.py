@@ -107,7 +107,7 @@ def test_two_chained_steps_match_the_mlp_and_no_obstacle_goldens(variant, mlp_ke
 def test_spec_switches_follow_the_jax_auto_rules():
     """None = auto: the selection kernels with "exact" on either device,
     the fused MLP on a card while no gradient is recorded and never on the
-    CPU; only exact float32 precision is taken."""
+    CPU; precision "highest" (the default) or "default", as in JAX."""
     robot = Robot.create(receding=4, kinematics="diff", length=1.6, width=2.0)
     nrmp = NRMPSpec(T=4, K=3, kinematics="diff", speed_bound=(8.0, 1.0), acce_bound=(0.8, 0.3))
     mk = lambda **kw: PANSpec(robot=robot, nrmp=nrmp, **kw)
@@ -123,8 +123,10 @@ def test_spec_switches_follow_the_jax_auto_rules():
     assert not mk().use_dune_mlp_kernel("cuda")      # a gradient is recorded
     assert mk().precision == "highest" and mk().dune_select == "exact"
     assert jpan.PANSpec.__dataclass_fields__["dune_select"].default == mk().dune_select
+    assert jpan.PANSpec.__dataclass_fields__["precision"].default == mk().precision
+    assert mk(precision="default").precision == "default"
     with pytest.raises(ValueError, match="TF32"):
-        mk(precision="default")
+        mk(precision="high")
     with pytest.raises(ValueError, match="dune_select"):
         mk(dune_select="nearest")
 
