@@ -1,11 +1,12 @@
 """Guards of the port: no JAX in it (nor optax, the JAX package's optimizer
 library, which LON's tuner and the DUNE trainer's Adam replace; the
 runners of both and scripts/train_dune_torch.py included), the card by
-default, and
-chip_smoke.py's refusal to report a result without a card."""
+default, chip_smoke.py's refusal to report a result without a card, and the
+test workers' share of the CPU threads."""
 
 import ast
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -21,6 +22,7 @@ PORT_FILES = sorted(
        for f in sorted(os.listdir(os.path.join(ROOT, "examples", d))) if f.endswith("_torch.py")]
     + [os.path.join(ROOT, "scripts", "train_dune_torch.py")])
 FORBIDDEN = ("jax", "jaxlib", "neupan_tpu", "optax")
+THREAD_VARS = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS")
 
 
 def _run(code_or_args, cwd=ROOT, timeout=120):
@@ -110,3 +112,63 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
         res = _run([os.path.join(cwd, "chip_smoke.py")], cwd=cwd)
         assert res.returncode != 0
         assert '"ok"' not in res.stdout
+
+
+def _initial_environ():
+    # the environment the process started with: later changes to os.environ
+    # do not reach /proc/self/environ
+    with open("/proc/self/environ", "rb") as f:
+        pairs = [kv.split(b"=", 1) for kv in f.read().split(b"\0") if b"=" in kv]
+    return {k.decode(): v.decode() for k, v in pairs}
+
+
+def test_xdist_workers_hold_their_share_of_the_cpu_threads():
+    """In an xdist worker, the conftest.py at the repo's root gives torch and
+    every BLAS and OpenMP pool cpus // workers threads, and the subprocesses
+    it starts the same through the environment; in a plain pytest run it
+    leaves them as the libraries choose."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "0"))
+    start = _initial_environ()
+    if workers:
+        import threadpoolctl
+
+        share = max(1, len(os.sched_getaffinity(0)) // workers)
+        assert torch.get_num_threads() == share
+        for pool in threadpoolctl.threadpool_info():
+            assert pool["num_threads"] == share, pool
+        for var in THREAD_VARS:
+            assert os.environ[var] == start.get(var, str(share)), var
+        return
+    for var in THREAD_VARS:
+        assert os.environ.get(var) == start.get(var), var
+
+
+@pytest.mark.parametrize("workers", [2, 3])
+def test_loadfile_runs_each_long_test_alone_on_a_worker_of_its_own(tmp_path, workers):
+    """Under --dist loadfile, the conftest.py at the repo's root hands each
+    of its long tests out first, alone, to a worker that stops after it,
+    while one worker is left for the rest; every test still runs."""
+    shutil.copy(os.path.join(ROOT, "conftest.py"), tmp_path)
+    (tmp_path / "pytest.ini").write_text("[pytest]\n")
+    tests = tmp_path / "tests"
+    tests.mkdir()
+    (tests / "test_parallel.py").write_text("".join(
+        f"def test_{name}():\n    pass\n\n\n"
+        for name in ("eight_virtual_devices_present", "sharded_matches_batched", "sharded_output_sharding")))
+    (tests / "test_many.py").write_text("".join(f"def test_{i}():\n    pass\n\n\n" for i in range(6)))
+    (tests / "test_few.py").write_text("def test_one():\n    pass\n")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("PYTEST_")}
+    env["PYTEST_DISABLE_PLUGIN_AUTOLOAD"] = "1"
+    res = subprocess.run([sys.executable, "-m", "pytest", "tests", "-v", "-p", "xdist", "-n", str(workers),
+                          "--dist", "loadfile", "-p", "no:cacheprovider"],
+                         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    ran = {}
+    for line in res.stdout.splitlines():
+        m = re.search(r"\[(gw\d+)\].* PASSED (\S+)", line)
+        if m:
+            ran.setdefault(m.group(1), []).append(m.group(2))
+    assert sum(map(len, ran.values())) == 10, res.stdout
+    alone = [ids[0] for ids in ran.values() if len(ids) == 1]
+    assert len(alone) == workers - 1, ran
+    assert all(i.startswith("tests/test_parallel.py::test_sharded_") for i in alone), ran
