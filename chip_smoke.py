@@ -829,30 +829,37 @@ def kernel_phase(torch, dev):
         plain_ms=time_ms(torch, lambda: PO.box_candidate_plain(*po_args, refine=refine), 5),
         library_ms=None, bound=bound(ops, nbytes))
 
-    # polish at T=33's shape (k=99, na=64, B=B_LONG: four 32-column chunks); above
-    # n=96 the plain version inverts by Cholesky, the kernel by its sweep
-    Bl, k, na = B_LONG, 99, 64
-    Qm = rng.normal(size=(Bl, k, k))
-    Hr = Qm @ np.swapaxes(Qm, 1, 2) / k + np.eye(k)
-    DAn = rng.normal(size=(Bl, na, k)) * 0.3
-    d = (rng.uniform(size=(Bl, na)) < 0.6).astype(np.float64)
-    DAn = DAn / np.maximum(np.linalg.norm(DAn, axis=2, keepdims=True), 1e-8) * d[:, :, None]
-    fix = (rng.uniform(size=(Bl, k)) < 0.4).astype(np.float64)
-    po_args = (f(Hr), f(Hr - 1e-6 * np.eye(k)), f(DAn), f(rng.normal(size=(Bl, k))),
-               f(rng.normal(size=(Bl, k))), f(rng.normal(size=(Bl, na)) * d),
-               f(rng.normal(size=(Bl, k)) * fix), f(fix), f(d))
-    out, outp = PO.box_candidate(*po_args, refine=refine), PO.box_candidate_plain(
-        *po_args, refine=refine)
-    torch.cuda.synchronize()
-    rel = max(float((o - p).abs().max() / p.abs().max().clamp(min=1e-9))
-              for o, p in zip(out, outp))
-    check(rel < 2e-4, f"polish k={k}: relative error {rel} against the plain version")
-    res["polish_k99"] = dict(
-        shape=f"B={Bl} k={k} na={na} refine={refine}", rel_err=rel,
-        max_abs_err=max(float((o - p).abs().max()) for o, p in zip(out, outp)),
-        ms=graph_ms(torch, lambda: PO.box_candidate(*po_args, refine=refine)),
-        plain_ms=time_ms(torch, lambda: PO.box_candidate_plain(*po_args, refine=refine), 5),
-        bound_ms=bound(*polish_work(Bl, k, na, refine))[0])
+    def polish_at(Bx, k, na):
+        """The kernel at a long horizon's shape against its plain version
+        (2e-4): ms, the plain version's ms and the bound."""
+        Qm = rng.normal(size=(Bx, k, k))
+        Hr = Qm @ np.swapaxes(Qm, 1, 2) / k + np.eye(k)
+        DAn = rng.normal(size=(Bx, na, k)) * 0.3
+        d = (rng.uniform(size=(Bx, na)) < 0.6).astype(np.float64)
+        DAn = DAn / np.maximum(np.linalg.norm(DAn, axis=2, keepdims=True), 1e-8) * d[:, :, None]
+        fix = (rng.uniform(size=(Bx, k)) < 0.4).astype(np.float64)
+        po_args = (f(Hr), f(Hr - 1e-6 * np.eye(k)), f(DAn), f(rng.normal(size=(Bx, k))),
+                   f(rng.normal(size=(Bx, k))), f(rng.normal(size=(Bx, na)) * d),
+                   f(rng.normal(size=(Bx, k)) * fix), f(fix), f(d))
+        out, outp = PO.box_candidate(*po_args, refine=refine), PO.box_candidate_plain(
+            *po_args, refine=refine)
+        torch.cuda.synchronize()
+        rel = max(float((o - p).abs().max() / p.abs().max().clamp(min=1e-9))
+                  for o, p in zip(out, outp))
+        check(rel < 2e-4, f"polish k={k}: relative error {rel} against the plain version")
+        return dict(
+            shape=f"B={Bx} k={k} na={na} refine={refine}", rel_err=rel,
+            max_abs_err=max(float((o - p).abs().max()) for o, p in zip(out, outp)),
+            warps=PO.block_warps(k, na),
+            ms=graph_ms(torch, lambda: PO.box_candidate(*po_args, refine=refine)),
+            plain_ms=time_ms(torch, lambda: PO.box_candidate_plain(*po_args, refine=refine), 5),
+            bound_ms=bound(*polish_work(Bx, k, na, refine))[0])
+
+    # polish at T=33's shape (k=99, na=64, B=B_LONG: four 32-column chunks; above
+    # n=96 the plain version inverts by Cholesky, the kernel by its sweep) and at
+    # T=30's (k=90, na=58) at diff-t30.fleet's batch, 1,024
+    res["polish_k99"] = polish_at(B_LONG, 99, 64)
+    res["polish_T30"] = polish_at(1024, 90, 58)
     return res
 
 
@@ -2515,7 +2522,7 @@ def main() -> None:
         if "ms_B1" in r:
             entries[-1].update(ms_B1=r["ms_B1"], bound_ms_B1=r["bound_B1"][0])
         if name == "polish":
-            entries[-1]["at_T33"] = kern["polish_k99"]
+            entries[-1].update(at_T33=kern["polish_k99"], at_T30=kern["polish_T30"])
         if name == "admm":
             entries[-1]["at_fullspace"] = kern["admm_fullspace"]
         if "bound_cuda_core" in r:

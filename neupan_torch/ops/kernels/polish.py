@@ -14,34 +14,51 @@ true Hessian (grad = C0 - Hr_true w).
 Bound on the H100: the chain of dependent steps, not bytes or operations.
 At k=30, na=18, refine=7 one candidate is ~0.2 MFLOP (the two inverses
 ~66 k, the Schur build ~52 k, each refinement pass ~12 k) against ~10 KB
-of input; at B=512 that is ~0.1 GFLOP against ~5 MB, 1.7 us at the card's
-float32 peak. The chain: k + na = 48 sweep pivots, two Schur products, and
-6 + 7 x 9 = 69 dependent matrix-vector products of 18-30 elements.
+of input; at k=90, na=58 (T=30) 4.35 MFLOP against ~100 KB, 0.066 ms at
+B=1,024 at the card's float32 peak. The chain: k + na sweep pivots (48 at
+T=10, 148 at T=30), two Schur products, and 6 + 7 x 9 = 69 dependent
+matrix-vector products, each behind a barrier.
 
-Design (``csrc/polish.cu``): one block of 4 warps per scenario, templated on
-NC = ceil(max(k, na) / 32) in 1..4, so every shape the wrapper admits
-(``polish_fits``: k, na <= 128 within one block's shared memory, which
-covers the horizons up to T=33) runs it. Above n=96 the plain version
-inverts by Cholesky (``sweep.spd_inverse_any``); the kernel keeps its sweep,
-as the TPU kernel does at every n.
+Design (``csrc/polish.cu``): one block per scenario, templated on NC =
+ceil(max(k, na) / 32) in 1..4 and on its warps, which NC alone sets
+(``block_warps``): 4 NC, one for each (group, chunk) pair of a product.
+Every shape the wrapper admits (``polish_fits``: k, na <= 128 within one
+block's shared memory, which covers the horizons up to T=36) runs it.
+Above n=96 the plain version inverts by Cholesky
+(``sweep.spd_inverse_any``); the kernel keeps its sweep, as the TPU kernel
+does at every n.
 
-* The two inverses: thread (warp w, lane c) holds rows w, w+4, ... of
+* Why the warps follow NC: at NC=1 a block takes 17 KB and ~5 share an SM;
+  at NC=3 one block fills an SM's shared memory (154 KB at T=30), and its
+  12 warps, three a scheduler, hide the latency of each pivot and product,
+  while a thread holds 8 NC values of each inverse (24 at NC=3).
+* The two inverses: thread (warp w, lane c) holds rows w, w+W, ... of
   columns c, c+32, ... in registers. Pivot j reads row j (= column j) and
-  1/pivot from a double-buffered shared row that the owners of row j+1
-  filled during pivot j-1: one barrier per pivot (48 at the main shape), a
-  branch-free update, no element loop dividing by n. The arithmetic, pivot
-  order, Jacobi scale (``1/sqrtf``, not ``rsqrtf``) and 1e-7 ridge are the
-  plain version's.
+  1/pivot from a double-buffered shared row that the owner of row j+1 fills
+  after its update of pivot j-1: one barrier per pivot (48 at the main
+  shape), a branch-free update, no element loop dividing by n. The
+  arithmetic, pivot order, Jacobi scale (``1/sqrtf``, not ``rsqrtf``) and
+  1e-7 ridge are the plain version's.
 * The Schur build: Hm^{-1} DAn' and S, one output per thread and row, four
-  partial sums per output at NC=1 (chains of 8); 2 barriers.
+  partial sums per output at NC=1 (chains of 8), one chain above; 2
+  barriers.
 * The KKT solve and the refinement passes: every warp holds every vector in
-  its lanes. A product A x splits its sum over j between the 4 warps (x_j
-  by shuffle, lane c sums column c), the partials meet in a double-buffered
-  shared array behind one barrier, and every warp adds them in the same
-  order: 69 barriers at refine=7. A single warp doing the products alone,
-  with no barrier, took 2.3x as long per refinement pass. DAn is stored
-  with an odd row stride, so reading it by row or by column is free of
-  bank conflicts.
+  its lanes. A product A x splits its sum over j into 4 groups of 8 NC
+  values and its outputs into the NC 32-lane chunks, one warp a (group,
+  chunk) pair: lane c sums column c in order of j, reading x_j from the
+  warp's own copy of x in shared memory (a shuffle there held each step of
+  the chain behind it). The 4 partials meet in a double-buffered shared
+  array behind one barrier, and every warp adds them in one fixed order:
+  69 barriers at refine=7, and no atomics, so a launch repeats bit for bit
+  and a scenario's result does not depend on its batch. The partials and
+  the copies of x take the place of DAn Hm^{-1} (dead by then). DAn is
+  stored with an odd row stride, so reading it by row or by column is free
+  of bank conflicts.
+* So the warps change no sum's association: every instance computes what
+  4 warps compute, bit for bit.
+
+Launches are counted in ``box_candidate.launches`` and, by the block's
+warps, in ``box_candidate.launches_by_warps``.
 
 No tensor cores: every product is a matrix times one vector, and the port
 keeps float32 throughout (TF32 off).
@@ -57,12 +74,20 @@ from neupan_torch.ops.kernels.sweep import spd_inverse_any, sweep_spd_inverse_pl
 MAX_N = 128   # k and na: four 32-column chunks (csrc/polish.cu's NC)
 
 
+def block_warps(k: int, na: int) -> int:
+    """Warps of the kernel's block for (k, na) (``block_warps`` in
+    ``csrc/polish.cu``): 4 NC, NC = ceil(max(k, na) / 32)."""
+    return 4 * -(-max(k, na) // 32)
+
+
 def smem_bytes(k: int, na: int) -> int:
     """Shared memory the kernel takes for (k, na) (``polish_smem_bytes`` in
-    ``csrc/polish.cu``)."""
-    nc = -(-max(k, na) // 32)
-    return 4 * (2 * 4 * 32 * nc + 2 * (32 * nc + 1) + 3 * k * k + 2 * na * (k | 1) + na * na
-                + k + na)
+    ``csrc/polish.cu``): the products' partial sums, 2 x 4 groups x 32 NC
+    floats, and each warp's copy of x, 32 NC floats, share the place of
+    DAn Hm^{-1} (na x (k | 1)), dead by then."""
+    nc, ks = -(-max(k, na) // 32), k | 1
+    part = (2 * 4 + block_warps(k, na)) * 32 * nc
+    return 4 * (2 * (32 * nc + 1) + 3 * k * k + na * ks + na * na + k + na + max(na * ks, part))
 
 
 def polish_fits(k: int, na: int) -> bool:
@@ -151,8 +176,10 @@ def box_candidate(Hr: torch.Tensor, Hr_true: torch.Tensor, DAn: torch.Tensor,
     _build.launch(fn, dev, *(_build.ptr(t) for t in (
         Hr, Hr_true, DAn, C0, g1r, g2n, b_box, fix, d, w, yn)), B, k, na, int(refine))
     box_candidate.launches += 1
+    box_candidate.launches_by_warps[block_warps(k, na)] += 1
     return w, yn
 
 
 box_candidate.launches = 0
+box_candidate.launches_by_warps = {4: 0, 8: 0, 12: 0, 16: 0}
 box_candidate_plain.launches = 0

@@ -443,7 +443,10 @@ def test_admm_kernel_matches_plain(cuda, B, k, m):
                                          (2, 90, 58, "random"),     # T=30
                                          (2, 99, 64, "random"),     # T=33, four chunks
                                          (2, 128, 10, "random"),    # the largest k
-                                         (3, 30, 18, "all fixed"), (3, 30, 18, "d zero")])
+                                         (265, 90, 58, "random"),   # > two waves at one block an SM
+                                         (3, 30, 18, "all fixed"), (3, 30, 18, "d zero"),
+                                         (2, 90, 58, "all fixed"), (2, 90, 58, "d zero"),
+                                         (2, 99, 64, "all fixed"), (2, 99, 64, "d zero")])
 def test_polish_kernel_matches_plain(cuda, B, k, na, case):
     """"all fixed": every coordinate pinned (fix = 1, the TPU wrapper's
     padded lanes), so Hm is the identity; "d zero": no active acc row, so
@@ -462,6 +465,27 @@ def test_polish_kernel_matches_plain(cuda, B, k, na, case):
     assert PO.box_candidate.launches == n0 + 1
     for o, r in zip(out, ref):
         assert float((o - r).abs().max() / r.abs().max().clamp(min=1e-9)) < 2e-4
+
+
+@pytest.mark.gpu
+def test_polish_kernel_rows_are_independent_and_repeat(cuda):
+    """A (265, 90, 58) launch, more than two waves at one block an SM: a
+    second launch repeats it and each row equals a launch of that scenario
+    alone, bit for bit (no atomics, every sum in a fixed order). 12 warps
+    serve (90, 58), 4 serve (30, 18)."""
+    args = [t32(a, cuda) for a in polish_inputs(B=265, k=90, na=58, seed=2)]
+    by_warps = PO.box_candidate.launches_by_warps
+    n4, n12 = by_warps[4], by_warps[12]
+    w, yn = PO.box_candidate(*args, refine=7)
+    w2, yn2 = PO.box_candidate(*args, refine=7)
+    assert torch.equal(w, w2) and torch.equal(yn, yn2)
+    for b in range(265):
+        wb, ynb = PO.box_candidate(*(a[b:b + 1] for a in args), refine=7)
+        assert torch.equal(wb[0], w[b]) and torch.equal(ynb[0], yn[b]), b
+    assert (by_warps[4], by_warps[12]) == (n4, n12 + 267)
+    PO.box_candidate(*(t32(a, cuda) for a in polish_inputs(B=3, k=30, na=18)), refine=7)
+    torch.cuda.synchronize()
+    assert (by_warps[4], by_warps[12]) == (n4 + 1, n12 + 267)
 
 
 @pytest.mark.gpu

@@ -231,6 +231,34 @@ def test_chip_smoke_settings_equal_their_yaml_files(name):
         assert golden and golden[0][1:3] == (start, waypoints)
 
 
+def test_polish_admission_keeps_every_shape():
+    """The polish kernel's shared memory by hand at three shapes: the pivot
+    rows 2 (32 NC + 1), Hr, Hr_true and Hm^{-1} 3 k^2, DAn na (k | 1), S
+    na^2, fix and d k + na, then the larger of DAn Hm^{-1} na (k | 1) and
+    the partial sums 2 x 4 groups x 32 NC with each warp's copy of x, 4 NC
+    x 32 NC. Every (k, na) <= 128 that the 4-warp layout admitted, by its
+    frozen formula, is admitted still."""
+    assert [PO.block_warps(k, na) for k, na in ((30, 18), (32, 32), (33, 10), (90, 58),
+                                                (99, 64), (128, 10))] == [4, 4, 8, 12, 16, 16]
+    assert PO.smem_bytes(30, 18) == 4 * (2 * 33 + 3 * 900 + 18 * 31 + 324 + 48 + 18 * 31)
+    assert PO.smem_bytes(90, 58) == 4 * (2 * 97 + 3 * 8100 + 58 * 91 + 3364 + 148 + 58 * 91)
+    assert PO.smem_bytes(128, 10) == 4 * (2 * 129 + 3 * 16384 + 10 * 129 + 100 + 138
+                                          + (8 + 16) * 128)
+    assert PO.smem_bytes(20, 4) == 4 * (2 * 33 + 3 * 400 + 4 * 21 + 16 + 24 + (8 + 4) * 32)
+    assert (PO.smem_bytes(30, 18), PO.smem_bytes(90, 58), PO.smem_bytes(128, 10)) == (
+        17016, 154248, 216040)
+
+    def four_warp_bytes(k, na):
+        nc = -(-max(k, na) // 32)
+        return 4 * (2 * 4 * 32 * nc + 2 * (32 * nc + 1) + 3 * k * k + 2 * na * (k | 1)
+                    + na * na + k + na)
+
+    admitted = [(k, na) for k in range(1, 129) for na in range(1, 129)
+                if four_warp_bytes(k, na) <= 232448]
+    assert len(admitted) == 14060
+    assert [s for s in admitted if not PO.polish_fits(*s)] == []
+
+
 def test_run_exp_torch_drives_the_closed_loop_without_jax():
     """examples/run_exp_torch.py, 12 ticks of corridor/diff on the CPU, in a
     process whose import of jax fails."""
